@@ -1,10 +1,14 @@
 """libpoporon_tpu_torch — the PyTorch and CUDA port of libpoporon_tpu.
 
 The JAX package stays the reference; this package mirrors its module
-names.  It imports torch and never jax.  So far it carries the RS slice:
-configs and presets, GF(2^m) tables, RS encode, and the three RS decode
-paths (plain, erasure, external syndrome), whose decode runs through a
-hand-written CUDA kernel (csrc/rs_decode.cu) on CUDA tensors.
+names.  It imports torch and never jax.  So far it carries two slices:
+
+- RS: configs and presets, GF(2^m) tables, RS encode, and the three RS
+  decode paths (plain, erasure, external syndrome), whose decode runs
+  through a hand-written CUDA kernel (csrc/rs_decode.cu) on CUDA tensors;
+- LDPC: the seeded parity-check structure and interleavers, encode, and
+  min-sum BP decode, hard and soft, whose BP runs through a hand-written
+  CUDA kernel (csrc/ldpc_bp.cu) on CUDA tensors.
 
     import libpoporon_tpu_torch as pt
 
@@ -12,8 +16,12 @@ hand-written CUDA kernel (csrc/rs_decode.cu) on CUDA tensors.
     parity = codec.encode(data).parity       # data: uint8 [B, k] (or [k])
     res    = codec.decode(data, parity)      # -> DecodeResult of tensors
 
+    ldpc = pt.create(pt.ldpc_config_default(128, pt.LdpcRate.RATE_1_2), device="cuda")
+    enc  = ldpc.encode(info)                 # interleaved data and parity
+    res  = ldpc.decode(enc.data, enc.parity, soft_llr=llr)   # llr: int8 [B, 2048]
+
 The device is explicit: `create` defaults to "cpu", and inputs are moved
-to the codec's device.  LDPC and BCH configs raise NotImplementedError.
+to the codec's device.  BCH configs raise NotImplementedError.
 """
 
 from .config import (

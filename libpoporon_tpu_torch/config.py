@@ -10,9 +10,10 @@ dataclasses and presets, with the reference's defaults:
 - LDPC burst-resistant: column_weight=7 (poporon.c:291-294)
 - BCH default:  (4, 0x13, t=3) -> BCH(15,5) (poporon.c:296-299)
 
-Only RS has a codec in this package so far; the LDPC and BCH configs are
+RS and LDPC have codecs in this package so far; the BCH config is
 carried over as data so that code written against the JAX package keeps
-its imports.
+its imports.  LdpcConfig's `use_pallas` (a TPU knob) is `use_kernel`
+here, as in RSConfig.
 """
 
 from __future__ import annotations
@@ -90,31 +91,34 @@ class LdpcConfig:
     max_iterations: int = 0  # 0 -> default 50 (ldpc.c:23, 981-983)
     seed: int = 0
 
-    # --- TPU execution policy (no reference analogue; results are
-    # bit-identical for every setting — these trade wall-clock only) ---
-    # Iterations the cheap first stage of the adaptive cascade runs
-    # before straggler compaction.  0 -> default 3 (most error patterns
-    # at realistic channel qualities converge in 1-3 BP iterations;
-    # models/ldpc.py STAGE1_ITERS).
+    # --- Execution policy (no reference analogue; results are
+    # bit-identical for every setting, these trade wall-clock only).
+    # The defaults are the JAX package's, tuned on a TPU, not on a GPU. ---
+    # Iterations of the adaptive cascade's first stage, before the
+    # stragglers are re-decoded at the full budget.  0 -> 3
+    # (models/ldpc.py STAGE1_ITERS).  The cascade runs for the plain
+    # version only: with the kernel on CUDA tensors an adaptive decode is
+    # one full-budget launch.
     adaptive_stage1_iters: int = 0
-    # Straggler slots per full-budget pass.  0 -> default 256
-    # (models/ldpc.py STRAGGLER_SLOTS).
+    # Rows per full-budget straggler pass of the cascade.  0 -> 256, or
+    # 1024 when the codec has a kernel (models/ldpc.py STRAGGLER_SLOTS).
     adaptive_straggler_slots: int = 0
-    # Codewords per BP chunk (gather fast-regime width).  0 -> default
-    # 1024 for every block size — measured optimal from 128B through
-    # 8192B on v5e (the BP gathers are row-DMA bound, so wider rows win
-    # on big codes too; see the sweep in models/ldpc.py __init__).
+    # Codewords per plain-version BP loop (models/ldpc.py DECODE_CHUNK):
+    # bounds the plain version's working set and lets each slice stop at
+    # its own last converging row.  0 -> 1024.  The kernel takes a whole
+    # batch in one launch and ignores it.
     decode_chunk: int = 0
-    # Batch size at which the facade switches to the adaptive cascade.
-    # 0 -> default 512.
+    # Batch size from which the facade decodes through the adaptive
+    # decode (decode_*_adaptive).  0 -> 512.
     adaptive_batch_threshold: int = 0
-    # Fused Pallas BP kernel: "auto" engages it on TPU backends for
-    # decode bodies whose iteration budget is past the measured
-    # crossover (models/ldpc.py PALLAS_MIN_ITERS) and whose structure
-    # fits VMEM (ldpc_pallas.BPPallasKernel.supports); "on" forces it
-    # wherever supported (any backend — non-TPU runs interpret mode,
-    # for tests); "off" disables it.
-    use_pallas: str = "auto"
+    # Hand-written CUDA BP kernel (models/ldpc_cuda.py, csrc/ldpc_bp.cu).
+    # "auto": every decode of a structure the kernel supports (its soft
+    # state fits one block's shared memory, edges <= 65535: the 128-byte
+    # codes, 64 B rate-1/3 and 1024 B rate-1/2 among them) goes through
+    # the kernel wrapper, which launches the kernel for CUDA tensors and
+    # runs the plain PyTorch version for CPU tensors.  Other structures
+    # always run the plain version.  "off": the plain version everywhere.
+    use_kernel: str = "auto"
 
     fec_type = FecType.LDPC
 

@@ -32,6 +32,7 @@ from ..ops.gf import GF, GFError
 from ..ops.gf2 import gf2_matmul
 from ..ops.gfint import gf_mul
 from ..utils.cache import LruCache
+from ..utils.tensors import as_tensor
 from .rs_cuda import RSCudaDecoder
 
 # The arrays a codec is built from, by the JAX codec's attribute names
@@ -159,7 +160,6 @@ def _build_matrices(gf: GF, fcr: int, prim: int, nr: int, genlog: np.ndarray):
 
 
 _ARRAY_CACHE = LruCache(capacity=16)
-_NP_DTYPES = {torch.uint8: np.uint8, torch.int32: np.int32}
 
 
 def host_arrays(cfg: RSConfig) -> dict[str, np.ndarray]:
@@ -291,18 +291,11 @@ class RSCodec:
         codec's, taken with np.asarray."""
         return cls(cfg, device, arrays)
 
-    def as_tensor(self, x, dtype: torch.dtype) -> torch.Tensor:
-        """Move an array-like or tensor to this codec's device; an
-        array-like is copied, so no result aliases the caller's array."""
-        if isinstance(x, torch.Tensor):
-            return x.to(device=self.device, dtype=dtype)
-        return torch.tensor(np.asarray(x, dtype=_NP_DTYPES[dtype]), device=self.device)
-
     # ----------------------------------------------------------- encode
 
     def encode(self, data) -> torch.Tensor:
         """data: uint8 [B, size] (or [size]) -> parity uint8 [B, nr]."""
-        data = self.as_tensor(data, torch.uint8)
+        data = as_tensor(data, torch.uint8, self.device)
         squeeze = data.ndim == 1
         if squeeze:
             data = data[None]
@@ -536,8 +529,8 @@ class RSCodec:
 
         Returns (ok [B] bool, data, parity, corrected [B] int32).
         """
-        data = self.as_tensor(data, torch.uint8)
-        parity = self.as_tensor(parity, torch.uint8)
+        data = as_tensor(data, torch.uint8, self.device)
+        parity = as_tensor(parity, torch.uint8, self.device)
         squeeze = data.ndim == 1
         if squeeze:
             data = data[None]
@@ -552,7 +545,7 @@ class RSCodec:
 
         kern = self.kernel
         if ext_syndrome is not None:
-            s = self.as_tensor(ext_syndrome, torch.int32)
+            s = as_tensor(ext_syndrome, torch.int32, self.device)
             if s.ndim == 1:
                 s = s[None].expand(B, self.num_roots)
             if kern is not None:
@@ -562,10 +555,10 @@ class RSCodec:
         elif erasures is not None:
             if isinstance(erasures, tuple):
                 pos, cnt = erasures
-                pos = self.as_tensor(pos, torch.int32)
-                cnt = self.as_tensor(cnt, torch.int32)
+                pos = as_tensor(pos, torch.int32, self.device)
+                cnt = as_tensor(cnt, torch.int32, self.device)
             else:
-                pos = self.as_tensor(erasures, torch.int32)
+                pos = as_tensor(erasures, torch.int32, self.device)
                 if pos.ndim == 1:
                     pos = pos[None].expand(B, pos.shape[0])
                 cnt = torch.full((B,), pos.shape[1], dtype=torch.int32,

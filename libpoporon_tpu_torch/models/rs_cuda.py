@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from ..utils import build
+from ..utils.tensors import checked
 
 MODE_PLAIN, MODE_ERASURE, MODE_EXT = 0, 1, 2
 MAX_ROOTS = 64       # the kernel's per-thread arrays
@@ -75,17 +76,17 @@ class RSCudaDecoder:
         nr = rs.num_roots
         if not 0 < size <= rs.k:
             raise ValueError(f"size {size} outside 1..{rs.k}")
-        data = _checked(data, torch.uint8, (B, size), dev)
-        parity = _checked(parity, torch.uint8, (B, nr), dev)
+        data = checked(data, torch.uint8, (B, size), dev)
+        parity = checked(parity, torch.uint8, (B, nr), dev)
         eras_width = 0
         if mode == MODE_ERASURE:
             eras_width = eras_pos.shape[1]
             if not self.supports_erasure(eras_width):
                 raise ValueError(f"erasure width {eras_width} outside 1..{nr}")
-            eras_pos = _checked(eras_pos, torch.int32, (B, eras_width), dev)
-            eras_count = _checked(eras_count, torch.int32, (B,), dev)
+            eras_pos = checked(eras_pos, torch.int32, (B, eras_width), dev)
+            eras_count = checked(eras_count, torch.int32, (B,), dev)
         if mode == MODE_EXT:
-            s_log = _checked(s_log, torch.int32, (B, nr), dev)
+            s_log = checked(s_log, torch.int32, (B, nr), dev)
         tables = self.tables.to(dev)
 
         data_out = torch.empty_like(data)
@@ -110,9 +111,3 @@ class RSCudaDecoder:
         self.launches += 1
         return ok, data_out, parity_out, corrected
 
-
-def _checked(t: torch.Tensor, dtype, shape, device) -> torch.Tensor:
-    """t as a contiguous tensor of `dtype` on `device`, shape checked."""
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"expected shape {tuple(shape)}, got {tuple(t.shape)}")
-    return t.to(device=device, dtype=dtype).contiguous()

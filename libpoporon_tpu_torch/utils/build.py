@@ -1,10 +1,12 @@
 """Build and load the package's CUDA kernels at first use.
 
-Every `csrc/*.cu` file is compiled with nvcc for Hopper (`sm_90a`) into
-one shared library with a plain C interface, loaded with ctypes.  The
-library's name carries a hash of the sources and flags, so an edited
-source builds anew and an unchanged one is loaded from `build/`.  A
-failed build raises with nvcc's output; there is no fallback.
+Every `csrc/*.cu` file is compiled with nvcc for Hopper (`sm_90a`), one
+nvcc process per source, all started together, and the objects are
+linked into one shared library with a plain C interface, loaded with
+ctypes.  The library's name carries a hash of the sources and flags, so
+an edited source builds anew and an unchanged one is loaded from
+`build/`.  A failed build raises with nvcc's output; there is no
+fallback.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -32,6 +34,9 @@ SIGNATURES = {
     # batch, size, nr, fcr, prim, prim_inv, device, stream
     "pp_rs_decode": [_I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
                      _I, _I, _I, _I, _I, _I, _I, _P],
+    # mode, in, chan, graph, src, out, ok_out, iters_out,
+    # batch, V, P, E, max_iter, device, stream
+    "pp_ldpc_bp": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -68,15 +73,25 @@ def build() -> Path:
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cus = [str(p) for p in sorted(CSRC_DIR.glob("*.cu"))]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cus]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
+    cus = sorted(CSRC_DIR.glob("*.cu"))
+    objs = [tmp.with_name(f"{tmp.name}.{cu.stem}.o") for cu in cus]
+    compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(cu)] for cu, o in zip(cus, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for cmd in compiles]
+    steps = [(cmd, p.communicate()[0], p.returncode) for cmd, p in zip(compiles, procs)]
+    if all(rc == 0 for _, _, rc in steps):
+        link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        p = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        steps.append((link, p.stdout, p.returncode))
+    for o in objs:
+        o.unlink(missing_ok=True)
+    so.with_suffix(".log").write_text("".join(out for _, out, _ in steps))
+    for cmd, out, rc in steps:
+        if rc != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{out}")
     os.replace(tmp, so)
     return so
 
