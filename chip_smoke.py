@@ -19,7 +19,20 @@ each slice of the port:
   at about 1e-2 channel BER), checks that both decodes went through the
   BP kernel, holds the kernel's three entries against the plain version
   over six configs, and times kernel, plain version, facade, adaptive
-  cascade and encode.
+  cascade, encode and the expanded-LLR `bp` entry.
+- Measurement path: runs the DMA probes' entry point
+  (`benchmarks.probe_dma.run`, the JAX probe's shapes and 128 MB gathered
+  sets), checks that it launched all three probe kernels, holds each
+  probe against its plain version and times PyTorch's own gather and copy
+  beside it; then runs the BER waterfall (`benchmarks.waterfall`) on the
+  card, soft and hard, checks that it went through the BP kernel and that
+  its lines equal the CPU run's on a small batch.
+
+Every kernel's entry in the `kernels` line carries its bound: the larger
+of its bytes over 3.35 TB/s and its operations over 67 T/s (the H100's
+float32 rate outside the tensor cores; NVIDIA's data sheet gives no
+integer rate there, so the bound is a floor), counted from this run's
+inputs.
 
 Every phase raises on failure, and the script then exits non-zero.  It
 exits non-zero without a result when torch sees no CUDA device.  It never
@@ -34,14 +47,16 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
 BATCH = 131072          # bench.py's headline batch
 WARMUP, ITERS = 3, 10   # CUDA-event timing
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
+OPS_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
 
 
 def check(cond, what: str) -> None:
@@ -53,11 +68,38 @@ def log(obj) -> None:
     print("# " + json.dumps(obj), flush=True)
 
 
-def card_info() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time of a call: the larger of its bytes over the memory
+    rate and its operations over the peak, and which of the two binds."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes": nbytes, "bound_ops": ops}
+
+
+def rs_ops(nr: int, n: int, fs: int, errors, erasures: int = 0, syndromes: bool = True) -> float:
+    """GF operations (a product or a sum is one) of RS decodes with
+    errors[i] corrections in row i: the syndromes (nr Horner passes over n
+    symbols) unless given; for rows with errors, the erasure locator
+    (erasures^2), BM over its nr - erasures trips, Chien over all fs
+    points, Omega, Forney and the verify of every syndrome."""
+    L = errors.double()
+    with_err = (L > 0).double()
+    per_row = (2 * nr * n if syndromes else 0) + 2 * fs * L + 5 * L * L + 2 * nr * L
+    per_row = per_row + with_err * (erasures ** 2 + 4 * nr * (nr - erasures))
+    return float(per_row.sum())
+
+
+def ldpc_ops(E: int, V: int, iters, hard: bool) -> float:
+    """Integer operations of BP decodes whose row i ran iters[i]
+    iterations: per row the unpack and v2c fill (V + E), the hard entry's
+    iteration-0 syndrome (E) and the output (V); per iteration the check
+    update (9 per edge: the two-minimum fold and the output select), the
+    var update (4 per edge, 2 per variable) and the syndrome (1 per
+    edge)."""
+    B = iters.numel()
+    fixed = V + E + (E if hard else 0) + V
+    return float(B * fixed + iters.double().sum() * (14 * E + 2 * V))
 
 
 def time_ms(fn, *args, warmup=WARMUP, iters=ITERS) -> float:
@@ -208,7 +250,7 @@ def ldpc_main_path(pt, dev, rng):
         check(np.array_equal(got[~ok], data_in[~ok]), f"LDPC {kind}: a failed row's data != input")
         check(ok.mean() > 0.99, f"LDPC {kind}: ok share {ok.mean()}")
         # the first rows again through the facade on CPU tensors
-        ref = pt.create(codec.config)
+        ref = pt.create(codec.config, device="cpu")
         ref_enc = ref.encode(info[:n])
         check(torch.equal(enc.data[:n].cpu(), ref_enc.data)
               and torch.equal(enc.parity[:n].cpu(), ref_enc.parity),
@@ -355,10 +397,19 @@ def ldpc_timing(pt, dev, main, common):
              "kernel_codewords_per_s": BATCH / ms * 1e3,
              "plain_codewords_per_s": BATCH / plain_ms * 1e3,
              "mean_iterations": float(got[2].double().mean()), **common})
+        s = c.structure
+        E, V, nbytes = s.num_edges_used, c.codeword_bits, (c.codeword_bits + 7) // 8
+        graph_bytes = 2 * (s.num_checks + 1 + E + V + 1 + E)
+        in_bytes = nbytes if kind == "hard" else V      # packed bytes or int8 LLRs
+        b = bound(BATCH * (in_bytes + nbytes + 1 + 4) + graph_bytes,
+                  ldpc_ops(E, V, got[2], kind == "hard"))
+        log({"bench": f"ldpc_{kind}_kernel_bound", "kernel_ms": ms, **b,
+             "share_of_bound": b["bound_ms"] / ms, **common})
         if kind == "hard":
-            entry.update(ms=ms, plain_ms=plain_ms)
+            entry.update(ms=ms, plain_ms=plain_ms, **b)
         else:
-            entry.update(soft_ms=ms, soft_plain_ms=plain_ms)
+            entry.update(soft_ms=ms, soft_plain_ms=plain_ms, soft_bound_ms=b["bound_ms"],
+                         soft_bound_by=b["bound_by"])
 
         def cascade(t, c=c, kind=kind):
             return c.cascade(lambda y, mi: c._decode(kind, y, mi), t, LDPC_MI)
@@ -391,6 +442,197 @@ def ldpc_timing(pt, dev, main, common):
     return entry
 
 
+def ldpc_bp_entry_timing(dev, main, common):
+    """K6: the expanded-LLR `bp` entry (BPCudaKernel.bp, hard mode) at
+    B = BATCH on the hard main path's inputs, expanded as phase 6 expands
+    them, against one call of its plain version (equal on every output)."""
+    import torch
+    from libpoporon_tpu_torch.models.ldpc import LLR_INFINITY, LLR_MAX
+    from libpoporon_tpu_torch.utils import bits
+
+    c = main["hard"]._ldpc
+    V, E = c.codeword_bits, c.structure.num_edges_used
+    fake = torch.full((1, BATCH), LLR_MAX, dtype=torch.int32, device=dev)
+    hb = bits.unpack(c.deinterleave(main["x"]), V).T
+    llr = torch.cat([torch.where(hb == 1, -LLR_INFINITY, LLR_INFINITY), fake]).to(torch.int16)
+    got = c.kernel.bp(llr, None, LDPC_MI)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    want = c._bp_plain(llr, None, LDPC_MI)
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    err = max_abs_err(got, want)
+    check(err == 0, f"LDPC bp entry B={BATCH}: kernel != plain (max abs err {err})")
+    ms = time_ms(c.kernel.bp, llr, None, LDPC_MI)
+    # llr [V+1, B] int16 in; bits [V+1, B] int8, ok and iters out
+    b = bound(BATCH * ((V + 1) * 2 + (V + 1) + 1 + 4), ldpc_ops(E, V, got[2], True))
+    log({"bench": "ldpc_bp_entry_hard", "kernel_ms": ms, "plain_ms": plain_ms,
+         "plain_calls": 1, "mean_iterations": float(got[2].double().mean()), **b,
+         "share_of_bound": b["bound_ms"] / ms, **common})
+    return err
+
+
+def probe_phase(common):
+    """Phase 8: the DMA probes' entry point (probe_dma.run: every probe at
+    the JAX shapes and the 128 MB gathered sets) with the launch counts set
+    to 0 before and read after; then each probe against its plain version
+    on the card at those shapes and at rows 1 and 1000, out and checksum
+    exact; the plain version and PyTorch's own gather and copy timed
+    beside it; and one probe call under utils.profiling.trace, whose
+    trace goes to build/traces.  Returns the three probes' entries
+    of the kernels line."""
+    import torch
+    from libpoporon_tpu_torch.benchmarks import probe_dma as pd
+    from libpoporon_tpu_torch.utils.profiling import trace
+
+    for name in pd.launches:
+        pd.launches[name] = 0
+    t0 = time.perf_counter()
+    results = list(pd.run(seed=0, warmup=WARMUP, iters=ITERS))
+    run_s = time.perf_counter() - t0
+    launches = dict(pd.launches)
+    check(all(n >= 1 for n in launches.values()), f"a probe kernel never launched: {launches}")
+    log({"phase": "probe_dma_run", "seconds": run_s, "launches": launches})
+    timed = {(r["probe"], r["depth"], r["sub"], r["rows"]): r for r in results}
+
+    # utils.profiling.trace around one probe call: the trace file is
+    # written, and the profiler sees the kernel's device time by name
+    idx, src = pd.inputs(np.random.default_rng(2), 8, pd.JAX_ROWS, "cuda")
+    log_dir = Path("build") / "traces"
+    before = set(log_dir.glob("*.json")) if log_dir.exists() else set()
+    with trace(str(log_dir)) as prof:
+        pd.gather_flood(idx, src, pd.JAX_ROWS, 8, pd.REPEAT)
+    check(set(log_dir.glob("*.json")) - before, "trace wrote no file")
+    device_us = {e.key: getattr(e, "device_time_total", 0) for e in prof.key_averages()
+                 if "probe" in e.key or "flood" in e.key}
+    log({"phase": "probe_trace", "device_us_by_kernel": device_us, **common})
+
+    rng = np.random.default_rng(1)
+    max_err = {name: 0 for name in pd.launches}
+    cases = 0
+
+    def compare(name, got, want, what):
+        nonlocal cases
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        max_err[name] = max(max_err[name], err)
+        cases += 1
+        check(err == 0, f"{name} {what}: kernel != plain (max abs err {err})")
+
+    entries = {}
+    for sub in (8, 16, 32):
+        src = None
+        for rows in (1, 1000, pd.JAX_ROWS, pd.HBM_ROWS[sub]):
+            idx, src = pd.inputs(rng, sub, rows, "cuda", src)
+            what = f"sub={sub} rows={rows}"
+            gather = pd.gather_plain(idx, src, sub)
+            compare("gather_flood", pd.gather_flood(idx, src, rows, sub, pd.REPEAT), gather, what)
+            for depth in (8, 1):
+                compare("gather_ring", pd.gather_ring(idx, src, rows, sub, pd.REPEAT, depth),
+                        gather, f"{what} depth={depth}")
+            compare("plane_copy", pd.plane_copy(src, rows, sub, pd.REPEAT),
+                    pd.plane_plain(src, rows, sub), what)
+            if rows < pd.JAX_ROWS:
+                continue
+            # PyTorch's gather and copy over the same bytes, `repeat` calls
+            # (index_select also writes the rows back to device memory)
+            src2d = src.view(-1, sub * pd.LANES)
+            dst = torch.empty(rows, sub * pd.LANES, dtype=torch.int32, device=src.device)
+
+            def lib_gather():
+                for _ in range(pd.REPEAT):
+                    torch.index_select(src2d, 0, idx, out=dst)
+                return dst
+
+            def lib_copy():
+                for _ in range(pd.REPEAT):
+                    dst.view(-1, pd.LANES).copy_(src[: rows * sub])
+                return dst
+
+            gathered = rows * sub * pd.SUBLANE_BYTES
+            lib = {"gather": time_ms(lib_gather), "copy": time_ms(lib_copy)}
+            plain = {"gather": time_ms(pd.gather_plain, idx, src, sub),
+                     "copy": time_ms(pd.plane_plain, src, rows, sub)}
+            for name, depth, kind in (("gather_flood", 0, "gather"), ("gather_ring", 8, "gather"),
+                                      ("gather_ring", 1, "gather"), ("plane_copy", 0, "copy")):
+                r = timed.get((name, depth, sub, rows))
+                if r is None:
+                    continue
+                nbytes = gathered * pd.REPEAT + 8 * pd.LANES * 4 + 8
+                if kind == "gather":
+                    nbytes += rows * 4
+                b = bound(nbytes, gathered // 4)      # one add per word, last repeat
+                row = {"name": name, "depth": depth, "sub": sub, "rows": rows,
+                       "l2_resident": r["l2_resident"], "ms": r["ms"],
+                       "gb_per_s": r["gb_per_s"], "mrows_per_s": r["mrows_per_s"],
+                       "ns_per_row": r["ns_per_row"], "plain_ms": plain[kind],
+                       "library_ms": lib[kind], "library_gb_per_s":
+                       gathered * pd.REPEAT / lib[kind] / 1e6, **b,
+                       "share_of_bound": b["bound_ms"] / r["ms"]}
+                log({"bench": "probe_dma", **row, **common})
+                # the kernels line: the 128 MB set at 4 KB rows, ring depth 8
+                if rows == pd.HBM_ROWS[8] and sub == 8 and depth in (0, 8):
+                    entries[name] = row
+    log({"phase": "probe_vs_plain", "cases": cases, "max_abs_err": max_err})
+    replaces = {"gather_flood": "benchmarks/probe_dma.py:43",
+                "gather_ring": "benchmarks/probe_dma.py:94",
+                "plane_copy": "benchmarks/probe_dma.py:146"}
+    out = []
+    for name in ("gather_flood", "gather_ring", "plane_copy"):
+        row = entries[name]
+        out.append({"name": name, "route": "cuda",
+                    "source": "libpoporon_tpu_torch/csrc/probe_dma.cu",
+                    "replaces": replaces[name], "launches": launches[name],
+                    "max_abs_err": max_err[name], "ms": row["ms"], "plain_ms": row["plain_ms"],
+                    "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                    "library_ms": row["library_ms"],
+                    "shape": {"sub": 8, "rows": row["rows"], "repeat": pd.REPEAT,
+                              "depth": row["depth"]}})
+    return out
+
+
+def waterfall_phase(common):
+    """Phase 9: the BER waterfall on the card at B = 16384 over its default
+    SNRs, soft and hard, through the BP kernel; then, on 256 codewords, the
+    same script on the card and on the CPU print the same lines."""
+    import contextlib
+    import io
+    import math
+
+    from libpoporon_tpu_torch.benchmarks import waterfall
+
+    def run(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            codec = waterfall.main(argv)
+        return codec, [json.loads(ln) for ln in buf.getvalue().splitlines()]
+
+    fer_at_top = {}
+    for mode, extra in (("soft", []), ("hard", ["--hard"])):
+        t0 = time.perf_counter()
+        codec, lines = run(["--batch", "16384", *extra])
+        seconds = time.perf_counter() - t0
+        check(codec.kernel is not None and codec.kernel.launches >= len(lines),
+              f"waterfall {mode}: the BP kernel did not run every point")
+        check(len(lines) == 7, f"waterfall {mode}: {len(lines)} lines")
+        for ln in lines:
+            check(all(math.isfinite(v) for v in ln.values()), f"waterfall {mode}: {ln}")
+            check(0 < ln["raw_ber"] < 0.5 and 0 <= ln["fer"] <= 1
+                  and 0 <= ln["avg_iters"] <= LDPC_MI, f"waterfall {mode}: {ln}")
+            log({"phase": "waterfall", "mode": mode, "batch": 16384, **ln,
+                 "card": common["card"]})
+        log({"phase": "waterfall", "mode": mode, "seconds": seconds,
+             "launches": codec.kernel.launches})
+        fer_at_top[mode] = lines[-1]["fer"]
+        small = ["--batch", "256", *extra]
+        check(run(small)[1] == run([*small, "--device", "cpu"])[1],
+              f"waterfall {mode}: the card's lines != the CPU's on 256 codewords")
+    check(fer_at_top["soft"] < 0.01 and fer_at_top["soft"] <= fer_at_top["hard"],
+          f"waterfall: FER at 5 dB {fer_at_top}")
+
+
 def main() -> int:
     import torch
 
@@ -400,6 +642,7 @@ def main() -> int:
     import libpoporon_tpu_torch as pt
     from libpoporon_tpu_torch.models.rs import RSCodec, _encode_np
     from libpoporon_tpu_torch.utils import build
+    from libpoporon_tpu_torch.utils.profiling import card_info
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
@@ -509,9 +752,11 @@ def main() -> int:
     # ---- phase 4: timing at B = 131072 on the card
     common = {"batch": BATCH, "card": card, "warmup": WARMUP, "iters": ITERS}
 
-    def kernel_vs_plain(bench, kernel_fn, plain_fn, *args):
+    def kernel_vs_plain(bench, kernel_fn, plain_fn, *args, in_bytes, **ops_kw):
         """Times both in the order plain, kernel, kernel, plain; checks
-        that they agree and that every row decoded to the original."""
+        that they agree and that every row decoded to the original.
+        in_bytes: bytes a row reads; ops_kw: rs_ops's mode arguments.
+        Returns the kernel's ms, the plain version's and the bound."""
         got, want = kernel_fn(*args), plain_fn(*args)
         check(all(torch.equal(a, b) for a, b in zip(got, want)),
               f"{bench}: kernel != plain")
@@ -521,16 +766,20 @@ def main() -> int:
         t_kern = [time_ms(kernel_fn, *args), time_ms(kernel_fn, *args)]
         t_plain.append(time_ms(plain_fn, *args))
         ms, plain_ms = sum(t_kern) / 2, sum(t_plain) / 2
+        # plus data, parity, ok and count written, and the four GF tables
+        b = bound(BATCH * (in_bytes + 223 + 32 + 1 + 4) + 4 * 256 * 4,
+                  rs_ops(rs.num_roots, 255, rs.fs, got[3], **ops_kw))
         log({"bench": bench, "kernel_ms": ms, "plain_ms": plain_ms,
              "kernel_runs_ms": t_kern, "plain_runs_ms": t_plain,
              "kernel_codewords_per_s": BATCH / ms * 1e3,
-             "plain_codewords_per_s": BATCH / plain_ms * 1e3, **common})
-        return ms, plain_ms
+             "plain_codewords_per_s": BATCH / plain_ms * 1e3, **b,
+             "share_of_bound": b["bound_ms"] / ms, **common})
+        return ms, plain_ms, b
 
     data_dev = torch.as_tensor(data, device=dev)
     d_dev, p_dev = torch.as_tensor(bad, device=dev), enc.parity
-    ms, plain_ms = kernel_vs_plain("rs_decode_2err", kern.decode_plain,
-                                   rs._decode_plain, d_dev, p_dev)
+    ms, plain_ms, rs_bound = kernel_vs_plain("rs_decode_2err", kern.decode_plain,
+                                             rs._decode_plain, d_dev, p_dev, in_bytes=255)
     # 32 erasures at the same positions in every row, as bench.py does
     epos = np.sort(rng.choice(223, 32, replace=False)).astype(np.int32)
     eras = data.copy()
@@ -538,10 +787,11 @@ def main() -> int:
     kernel_vs_plain("rs_erasure_32", kern.decode_erasure, rs._decode_erasure,
                     torch.as_tensor(eras, device=dev), p_dev,
                     torch.as_tensor(epos, device=dev).expand(BATCH, 32).contiguous(),
-                    torch.full((BATCH,), 32, dtype=torch.int32, device=dev))
+                    torch.full((BATCH,), 32, dtype=torch.int32, device=dev),
+                    in_bytes=255 + 32 * 4 + 4, erasures=32)
     s_log = rs.exp2log[rs._syndrome(d_dev, p_dev).long()]
     kernel_vs_plain("rs_ext_syndrome", kern.decode_ext, rs._decode_ext_syndrome,
-                    d_dev, p_dev, s_log)
+                    d_dev, p_dev, s_log, in_bytes=255 + 32 * 4, syndromes=False)
 
     off = pt.create(pt.RSConfig(use_kernel="off"), device="cuda")
     check(off._rs.kernel is None, "use_kernel='off' still has a kernel")
@@ -561,16 +811,25 @@ def main() -> int:
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,
+        **rs_bound,
+        "library_ms": None,
     }
 
-    # ---- phases 5 to 7: the LDPC slice
+    # ---- phases 5 to 7: the LDPC slice, and the bp entry's timing
     main = ldpc_main_path(pt, dev, rng)
     max_err = ldpc_kernel_vs_plain(pt, dev, rng)
     ldpc_entry = ldpc_timing(pt, dev, main, common)
     ldpc_entry["launches"] = main["launches"]
-    ldpc_entry["max_abs_err"] = max(max_err, ldpc_entry["max_abs_err"])
+    ldpc_entry["library_ms"] = None
+    bp_err = ldpc_bp_entry_timing(dev, main, common)
+    ldpc_entry["max_abs_err"] = max(max_err, bp_err, ldpc_entry["max_abs_err"])
+    del main
 
-    print(json.dumps({"kernels": [rs_entry, ldpc_entry]}), flush=True)
+    # ---- phases 8 and 9: the measurement path (DMA probes, waterfall)
+    probe_entries = probe_phase(common)
+    waterfall_phase(common)
+
+    print(json.dumps({"kernels": [rs_entry, ldpc_entry, *probe_entries]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

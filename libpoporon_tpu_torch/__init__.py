@@ -1,14 +1,18 @@
 """libpoporon_tpu_torch — the PyTorch and CUDA port of libpoporon_tpu.
 
 The JAX package stays the reference; this package mirrors its module
-names.  It imports torch and never jax.  So far it carries two slices:
+names.  It imports torch and never jax.  So far it carries:
 
 - RS: configs and presets, GF(2^m) tables, RS encode, and the three RS
   decode paths (plain, erasure, external syndrome), whose decode runs
   through a hand-written CUDA kernel (csrc/rs_decode.cu) on CUDA tensors;
 - LDPC: the seeded parity-check structure and interleavers, encode, and
   min-sum BP decode, hard and soft, whose BP runs through a hand-written
-  CUDA kernel (csrc/ldpc_bp.cu) on CUDA tensors.
+  CUDA kernel (csrc/ldpc_bp.cu) on CUDA tensors;
+- measurement: the DMA probes as CUDA bulk-copy kernels
+  (csrc/probe_dma.cu, benchmarks/probe_dma.py), the BER waterfall
+  (benchmarks/waterfall.py), fault injection and card-only timing
+  (utils/faults.py, utils/profiling.py).
 
     import libpoporon_tpu_torch as pt
 
@@ -20,7 +24,9 @@ names.  It imports torch and never jax.  So far it carries two slices:
     enc  = ldpc.encode(info)                 # interleaved data and parity
     res  = ldpc.decode(enc.data, enc.parity, soft_llr=llr)   # llr: int8 [B, 2048]
 
-The device is explicit: `create` defaults to "cpu", and inputs are moved
+`create` puts the codec on the card ("cuda") unless given another device;
+without a card that default raises, and the CPU runs only where the
+caller asks for it (`device="cpu"`, as the tests do).  Inputs are moved
 to the codec's device.  BCH configs raise NotImplementedError.
 """
 

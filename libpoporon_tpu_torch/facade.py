@@ -2,10 +2,11 @@
 LDPC parts).
 
 One `Codec` object per config, operating on batches of codewords
-([B, ...] uint8; a 1-D input is a batch of one) on one explicit torch
-device.  Inputs (NumPy arrays or tensors) are moved to that device;
-outputs are tensors on it.  Nothing chooses the device for the caller and
-nothing moves work to another device.
+([B, ...] uint8; a 1-D input is a batch of one) on one torch device: the
+card ("cuda") unless the caller asks for another, such as "cpu".  Without
+a card the default raises; it never falls back to the CPU.  Inputs (NumPy
+arrays or tensors) are moved to the codec's device; outputs are tensors
+on it.  Nothing moves work to another device.
 
 As in the JAX package, LDPC `encode` returns the interleaved data where
 the config interleaves, and LDPC `decode` reports the iterations used in
@@ -47,7 +48,7 @@ class EncodeResult:
 
 
 class Codec:
-    def __init__(self, config, device: str | torch.device = "cpu"):
+    def __init__(self, config, device: str | torch.device = "cuda"):
         if isinstance(config, BchConfig):
             raise NotImplementedError(
                 "BCH is not ported yet (ROADMAP.md Queue 1 item 8)")
@@ -159,6 +160,7 @@ class Codec:
         return DecodeResult(ok, torch.where(ok[:, None], info, data), parity, iters)
 
 
-def create(config, device: str | torch.device = "cpu") -> Codec:
-    """poporon_create (poporon.c:172-188), on an explicit device."""
+def create(config, device: str | torch.device = "cuda") -> Codec:
+    """poporon_create (poporon.c:172-188), on `device` (default the card;
+    raises RuntimeError where torch sees none)."""
     return Codec(config, device)

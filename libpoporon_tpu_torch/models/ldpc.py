@@ -363,7 +363,7 @@ def get_structure(cfg: LdpcConfig) -> LdpcStructure:
 
 class LDPCCodec:
     """Batched LDPC encode and min-sum BP decode (hard and soft) on one
-    explicit torch device."""
+    torch device, the card by default."""
 
     # Adaptive cascade defaults, the JAX package's (tuned on a TPU).
     STAGE1_ITERS = 3
@@ -371,7 +371,7 @@ class LDPCCodec:
     # Codewords per plain-version BP loop.
     DECODE_CHUNK = 1024
 
-    def __init__(self, cfg: LdpcConfig, device: str | torch.device = "cpu",
+    def __init__(self, cfg: LdpcConfig, device: str | torch.device = "cuda",
                  structure: LdpcStructure | None = None):
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
@@ -432,7 +432,7 @@ class LDPCCodec:
 
     @classmethod
     def from_arrays(cls, cfg: LdpcConfig, arrays: dict,
-                    device: str | torch.device = "cpu") -> "LDPCCodec":
+                    device: str | torch.device = "cuda") -> "LDPCCodec":
         """A codec whose structure is built from given arrays (ARRAY_NAMES),
         e.g. a JAX structure's, taken with np.asarray."""
         return cls(cfg, device, LdpcStructure.from_arrays(cfg, arrays))

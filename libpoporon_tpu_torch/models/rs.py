@@ -232,9 +232,9 @@ def _scatter_add(values: torch.Tensor, index: torch.Tensor, length: int) -> torc
 
 class RSCodec:
     """Batched Reed-Solomon over GF(2^m), m <= 8 for the byte API, on one
-    explicit torch device."""
+    torch device, the card by default."""
 
-    def __init__(self, cfg: RSConfig, device: str | torch.device = "cpu",
+    def __init__(self, cfg: RSConfig, device: str | torch.device = "cuda",
                  arrays: dict[str, np.ndarray] | None = None):
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
@@ -286,7 +286,7 @@ class RSCodec:
 
     @classmethod
     def from_arrays(cls, cfg: RSConfig, arrays: dict[str, np.ndarray],
-                    device: str | torch.device = "cpu") -> "RSCodec":
+                    device: str | torch.device = "cuda") -> "RSCodec":
         """A codec built from given arrays (ARRAY_NAMES), e.g. a JAX
         codec's, taken with np.asarray."""
         return cls(cfg, device, arrays)

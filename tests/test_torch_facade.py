@@ -1,6 +1,6 @@
 """The port's RS slice end to end through its facade, against the JAX
 package's facade on the same inputs, plus the port's device and import
-rules.  Exact equality on every output.
+rules (its measurement modules included).  Exact equality on every output.
 """
 
 import subprocess
@@ -31,7 +31,7 @@ def test_main_path_matches_jax():
     B = 256
     rng = np.random.default_rng(0)
     data = rng.integers(0, 256, (B, 223), dtype=np.uint8)
-    codec, ref = pt.create(pt.rs_config_default()), jpp.create(jpp.rs_config_default())
+    codec, ref = pt.create(pt.rs_config_default(), device="cpu"), jpp.create(jpp.rs_config_default())
     enc, enc_ref = codec.encode(data), ref.encode(data)
     assert codec.device == torch.device("cpu")
     assert np.array_equal(enc.data.numpy(), np.asarray(enc_ref.data))
@@ -50,7 +50,7 @@ def test_main_path_matches_jax():
 
 
 def test_getters_and_erasure_object_match_jax():
-    codec, ref = pt.create(pt.rs_config_default()), jpp.create(jpp.rs_config_default())
+    codec, ref = pt.create(pt.rs_config_default(), device="cpu"), jpp.create(jpp.rs_config_default())
     assert (codec.parity_size, codec.info_size) == (ref.parity_size, ref.info_size)
     rng = np.random.default_rng(1)
     data = rng.integers(0, 256, 223, dtype=np.uint8)
@@ -68,12 +68,12 @@ def test_getters_and_erasure_object_match_jax():
 
 def test_ldpc_and_bch_not_ported_yet():
     """BCH is not ported yet and raises; LDPC is, and creates a codec."""
-    ldpc = pt.create(pt.ldpc_config_default(128, pt.LdpcRate.RATE_1_2))
+    ldpc = pt.create(pt.ldpc_config_default(128, pt.LdpcRate.RATE_1_2), device="cpu")
     assert ldpc.fec_type == pt.FecType.LDPC and ldpc.device == torch.device("cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.create(pt.bch_config_default())
+        pt.create(pt.bch_config_default(), device="cpu")
     with pytest.raises(TypeError):
-        pt.create(object())
+        pt.create(object(), device="cpu")
 
 
 def test_cuda_device_raises_without_a_card():
@@ -83,8 +83,21 @@ def test_cuda_device_raises_without_a_card():
         pt.create(pt.rs_config_default(), device="cuda")
 
 
+def test_default_device_is_the_card():
+    """With no device, create targets the card: on a host without one it
+    raises rather than running on the CPU."""
+    if torch.cuda.is_available():
+        assert pt.create(pt.rs_config_default()).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            pt.create(pt.rs_config_default())
+
+
 def test_import_leaves_jax_out():
-    code = ("import sys, libpoporon_tpu_torch; "
+    code = ("import sys, libpoporon_tpu_torch, "
+            "libpoporon_tpu_torch.benchmarks.probe_dma, "
+            "libpoporon_tpu_torch.benchmarks.waterfall, "
+            "libpoporon_tpu_torch.utils.faults, libpoporon_tpu_torch.utils.profiling; "
             "bad = [m for m in ('jax', 'libpoporon_tpu') if m in sys.modules]; "
             "sys.exit(f'imported {bad}' if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

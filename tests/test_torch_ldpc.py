@@ -37,7 +37,7 @@ B = 512
 def pair():
     """(JAX codec, port codec) for 128-byte rate-1/2."""
     jc, pc = config_pair("128B-r12")
-    return JaxLDPCCodec(jc), LDPCCodec(pc)
+    return JaxLDPCCodec(jc), LDPCCodec(pc, "cpu")
 
 
 @pytest.fixture(scope="module")
@@ -45,7 +45,7 @@ def gap_pair():
     """(JAX codec, port codec) for a config whose inner deinterleave
     leaves 48 gaps (both interleavers, depth 100, QC lifting 32)."""
     jc, pc = config_pair("128B-qc-depth100")
-    return JaxLDPCCodec(jc), LDPCCodec(pc)
+    return JaxLDPCCodec(jc), LDPCCodec(pc, "cpu")
 
 
 def flip(rng, cw, nerr, nbits):
@@ -112,7 +112,7 @@ def jax_decode(jl, kind, x, mi=0):
 @pytest.mark.parametrize("name", ["128B-r12", "128B-r34-inner", "128B-qc-depth100"])
 def test_encode_check_interleave_match_jax(name):
     jc, pc = config_pair(name)
-    jl, pl = JaxLDPCCodec(jc), LDPCCodec(pc)
+    jl, pl = JaxLDPCCodec(jc), LDPCCodec(pc, "cpu")
     cw = mixed_hard(pl, 1, n_rows=64)
     info = cw[:, : pl.info_bytes]
     got = pl.encode(info)
@@ -140,7 +140,7 @@ def test_decode_matches_jax_and_adaptive_matches_plain(pair, kind):
     else:
         assert (iters[ok] >= 1).all()             # soft has no iteration-0 detect
     assert_same(getattr(pl, f"decode_{kind}_adaptive")(x), want)
-    off = LDPCCodec(dataclasses.replace(config_pair("128B-r12")[1], use_kernel="off"))
+    off = LDPCCodec(dataclasses.replace(config_pair("128B-r12")[1], use_kernel="off"), "cpu")
     assert off.kernel is None and off.STRAGGLER_SLOTS == 256
     assert_same(getattr(off, f"decode_{kind}_adaptive")(x), want)
 
@@ -242,7 +242,7 @@ def test_bp_entry_matches_jax_bp_loop(pair, kind):
 def test_from_arrays_decodes_like_jax(pair):
     jl, _ = pair
     jc, pc = config_pair("128B-r12")
-    pl = LDPCCodec.from_arrays(pc, jax_arrays(jl.structure))
+    pl = LDPCCodec.from_arrays(pc, jax_arrays(jl.structure), "cpu")
     x = mixed_hard(pl, 2)                        # the hard decode test's input
     assert_same(pl.decode_hard(x), jax_decode(jl, "hard", x))
 
@@ -262,14 +262,14 @@ def test_kernel_wrapper_runs_plain_version_on_cpu(pair):
 
 def test_use_kernel_knob_and_gate():
     pc = config_pair("128B-r12")[1]
-    assert LDPCCodec(dataclasses.replace(pc, use_kernel="off")).kernel is None
+    assert LDPCCodec(dataclasses.replace(pc, use_kernel="off"), "cpu").kernel is None
     with pytest.raises(ValueError):
-        LDPCCodec(dataclasses.replace(pc, use_kernel="on"))
+        LDPCCodec(dataclasses.replace(pc, use_kernel="on"), "cpu")
     for name in ("128B-r12", "128B-qc", "default", "burst-cw7", "64B-r13",
                  "128B-r34-inner", "128B-qc-depth100"):
-        assert LDPCCodec(config_pair(name)[1]).kernel is not None, name
-    inside = LDPCCodec(LdpcConfig(1024, LdpcRate.RATE_1_2))
-    outside = LDPCCodec(LdpcConfig(1024, LdpcRate.RATE_1_3))
+        assert LDPCCodec(config_pair(name)[1], "cpu").kernel is not None, name
+    inside = LDPCCodec(LdpcConfig(1024, LdpcRate.RATE_1_2), "cpu")
+    outside = LDPCCodec(LdpcConfig(1024, LdpcRate.RATE_1_3), "cpu")
     assert inside.kernel is not None and outside.kernel is None
     assert outside.H_info is None and outside.STRAGGLER_SLOTS == 256
 
@@ -281,7 +281,7 @@ def test_plain_packed_hard_matches_pallas_interpret(monkeypatch):
     monkeypatch.setattr(lp.BPPallasKernel, "_interpret",
                         jax.devices()[0].platform != "tpu")
     jl = JaxLDPCCodec(config_pair("128B-r12", block_size=32)[0])
-    pl = LDPCCodec(config_pair("128B-r12", block_size=32)[1])
+    pl = LDPCCodec(config_pair("128B-r12", block_size=32)[1], "cpu")
     x = mixed_hard(pl, 14, n_rows=lp.BLK)
     want = lp.BPPallasKernel(jl.structure).bp_packed_hard(jnp.asarray(x), 9)
     assert_same(pl.decode_hard(x, 9), want)

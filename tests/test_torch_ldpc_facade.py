@@ -24,10 +24,10 @@ torch.set_num_threads(2)
 
 def facades(kind):
     if kind == "hard":
-        return (pt.create(pt.LdpcConfig(128, pt.LdpcRate.RATE_1_2)),
+        return (pt.create(pt.LdpcConfig(128, pt.LdpcRate.RATE_1_2), device="cpu"),
                 jpp.create(jpp.LdpcConfig(128, jpp.LdpcRate.RATE_1_2, use_pallas="off")))
     cfg = jpp.ldpc_config_default(128, jpp.LdpcRate.RATE_1_2)
-    return (pt.create(pt.ldpc_config_default(128, pt.LdpcRate.RATE_1_2)),
+    return (pt.create(pt.ldpc_config_default(128, pt.LdpcRate.RATE_1_2), device="cpu"),
             jpp.create(type(cfg)(**{**cfg.__dict__, "use_pallas": "off"})))
 
 

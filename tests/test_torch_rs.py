@@ -78,7 +78,7 @@ def jax_rs():
 
 @pytest.fixture(scope="module")
 def rs():
-    return RSCodec(RSConfig())
+    return RSCodec(RSConfig(), "cpu")
 
 
 def _inputs(rs, seed, size, n_rows=B):
@@ -199,8 +199,8 @@ def test_kernel_wrapper_runs_plain_version_on_cpu(rs):
 
 
 def test_use_kernel_knob():
-    assert RSCodec(RSConfig(use_kernel="off")).kernel is None
+    assert RSCodec(RSConfig(use_kernel="off"), "cpu").kernel is None
     assert RSCodec(RSConfig(symbol_size=4, generator_polynomial=0x13,
-                            num_roots=4)).kernel is None   # outside the gate
+                            num_roots=4), "cpu").kernel is None   # outside the gate
     with pytest.raises(ValueError):
-        RSCodec(RSConfig(use_kernel="on"))
+        RSCodec(RSConfig(use_kernel="on"), "cpu")

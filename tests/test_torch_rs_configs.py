@@ -37,7 +37,7 @@ def _codecs(name):
     """(port, JAX) codecs per config, built once per module."""
     if name not in _CODECS:
         kw = CONFIGS[name]
-        _CODECS[name] = (RSCodec(RSConfig(**kw)),
+        _CODECS[name] = (RSCodec(RSConfig(**kw), "cpu"),
                          JaxRSCodec(JaxRSConfig(use_pallas="off", **kw)))
     return _CODECS[name]
 

@@ -31,7 +31,7 @@ def test_plain_decode_matches_pallas_interpret(monkeypatch):
     monkeypatch.setattr(RSPallasDecoder, "_interpret",
                         jax.devices()[0].platform != "tpu")
     dec = RSPallasDecoder(JaxRSCodec(JaxRSConfig(use_pallas="off")), lanes=128)
-    rs = RSCodec(RSConfig())
+    rs = RSCodec(RSConfig(), "cpu")
     rng = np.random.default_rng(11)
     data = rng.integers(0, 256, (128, 223), dtype=np.uint8)
     parity = rs.encode(data).numpy()
