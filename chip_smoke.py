@@ -21,18 +21,20 @@ each slice of the port:
   over six configs, and times kernel, plain version, facade, adaptive
   cascade, encode and the expanded-LLR `bp` entry.
 - Measurement path: runs the DMA probes' entry point
-  (`benchmarks.probe_dma.run`, the JAX probe's shapes and 128 MB gathered
+  (`benchmarks.probe_dma.run`, the JAX probe's shapes and 1 GB gathered
   sets), checks that it launched all three probe kernels, holds each
-  probe against its plain version and times PyTorch's own gather and copy
-  beside it; then runs the BER waterfall (`benchmarks.waterfall`) on the
+  probe against its plain version (out, checksum and the bytes landed over
+  all repeats) and times PyTorch's own gather and copy beside it; then runs the BER waterfall (`benchmarks.waterfall`) on the
   card, soft and hard, checks that it went through the BP kernel and that
   its lines equal the CPU run's on a small batch.
 
 Every kernel's entry in the `kernels` line carries its bound: the larger
-of its bytes over 3.35 TB/s and its operations over 67 T/s (the H100's
-float32 rate outside the tensor cores; NVIDIA's data sheet gives no
-integer rate there, so the bound is a floor), counted from this run's
-inputs.
+of its bytes over 3.35 TB/s and its integer operations over 16.7 T/s
+(132 SMs x 64 INT32 lanes x 1.98 GHz, the H100 SXM's SM layout and boost
+clock; the data sheet gives no integer rate), counted from this run's
+inputs.  A probe's bytes are those device memory must give: its distinct
+rows once, and on each later repeat all but the 50 MB the L2 can keep;
+a probe whose set fits L2 gets no device-memory bound.
 
 Every phase raises on failure, and the script then exits non-zero.  It
 exits non-zero without a result when torch sees no CUDA device.  It never
@@ -56,7 +58,7 @@ import numpy as np
 BATCH = 131072          # bench.py's headline batch
 WARMUP, ITERS = 3, 10   # CUDA-event timing
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
-OPS_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
+INT_OPS_PER_S = 132 * 64 * 1.98e9   # H100 SXM: SMs x INT32 lanes x boost clock
 
 
 def check(cond, what: str) -> None:
@@ -70,8 +72,8 @@ def log(obj) -> None:
 
 def bound(nbytes: float, ops: float) -> dict:
     """The least time of a call: the larger of its bytes over the memory
-    rate and its operations over the peak, and which of the two binds."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / OPS_PER_S * 1e3
+    rate and its integer operations over the peak, and which binds."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT_OPS_PER_S * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bound_bytes": nbytes, "bound_ops": ops}
@@ -476,11 +478,11 @@ def ldpc_bp_entry_timing(dev, main, common):
 
 def probe_phase(common):
     """Phase 8: the DMA probes' entry point (probe_dma.run: every probe at
-    the JAX shapes and the 128 MB gathered sets) with the launch counts set
+    the JAX shapes and the 1 GB gathered sets) with the launch counts set
     to 0 before and read after; then each probe against its plain version
-    on the card at those shapes and at rows 1 and 1000, out and checksum
-    exact; the plain version and PyTorch's own gather and copy timed
-    beside it; and one probe call under utils.profiling.trace, whose
+    on the card at those shapes and at rows 1 and 1000, out, checksum and
+    landed bytes exact; the plain version and PyTorch's own gather and copy
+    timed beside it; and one probe call under utils.profiling.trace, whose
     trace goes to build/traces.  Returns the three probes' entries
     of the kernels line."""
     import torch
@@ -499,7 +501,9 @@ def probe_phase(common):
 
     # utils.profiling.trace around one probe call: the trace file is
     # written, and the profiler sees the kernel's device time by name
-    idx, src = pd.inputs(np.random.default_rng(2), 8, pd.JAX_ROWS, "cuda")
+    rng = np.random.default_rng(2)
+    src = pd.source(rng, pd.SOURCE_UNITS, "cuda")
+    idx = pd.index(rng, src.shape[0] // 8, pd.JAX_ROWS, "cuda")
     log_dir = Path("build") / "traces"
     before = set(log_dir.glob("*.json")) if log_dir.exists() else set()
     with trace(str(log_dir)) as prof:
@@ -523,58 +527,15 @@ def probe_phase(common):
 
     entries = {}
     for sub in (8, 16, 32):
-        src = None
-        for rows in (1, 1000, pd.JAX_ROWS, pd.HBM_ROWS[sub]):
-            idx, src = pd.inputs(rng, sub, rows, "cuda", src)
-            what = f"sub={sub} rows={rows}"
-            gather = pd.gather_plain(idx, src, sub)
-            compare("gather_flood", pd.gather_flood(idx, src, rows, sub, pd.REPEAT), gather, what)
-            for depth in (8, 1):
-                compare("gather_ring", pd.gather_ring(idx, src, rows, sub, pd.REPEAT, depth),
-                        gather, f"{what} depth={depth}")
-            compare("plane_copy", pd.plane_copy(src, rows, sub, pd.REPEAT),
-                    pd.plane_plain(src, rows, sub), what)
-            if rows < pd.JAX_ROWS:
-                continue
-            # PyTorch's gather and copy over the same bytes, `repeat` calls
-            # (index_select also writes the rows back to device memory)
-            src2d = src.view(-1, sub * pd.LANES)
-            dst = torch.empty(rows, sub * pd.LANES, dtype=torch.int32, device=src.device)
-
-            def lib_gather():
-                for _ in range(pd.REPEAT):
-                    torch.index_select(src2d, 0, idx, out=dst)
-                return dst
-
-            def lib_copy():
-                for _ in range(pd.REPEAT):
-                    dst.view(-1, pd.LANES).copy_(src[: rows * sub])
-                return dst
-
-            gathered = rows * sub * pd.SUBLANE_BYTES
-            lib = {"gather": time_ms(lib_gather), "copy": time_ms(lib_copy)}
-            plain = {"gather": time_ms(pd.gather_plain, idx, src, sub),
-                     "copy": time_ms(pd.plane_plain, src, rows, sub)}
-            for name, depth, kind in (("gather_flood", 0, "gather"), ("gather_ring", 8, "gather"),
-                                      ("gather_ring", 1, "gather"), ("plane_copy", 0, "copy")):
-                r = timed.get((name, depth, sub, rows))
-                if r is None:
-                    continue
-                nbytes = gathered * pd.REPEAT + 8 * pd.LANES * 4 + 8
-                if kind == "gather":
-                    nbytes += rows * 4
-                b = bound(nbytes, gathered // 4)      # one add per word, last repeat
-                row = {"name": name, "depth": depth, "sub": sub, "rows": rows,
-                       "l2_resident": r["l2_resident"], "ms": r["ms"],
-                       "gb_per_s": r["gb_per_s"], "mrows_per_s": r["mrows_per_s"],
-                       "ns_per_row": r["ns_per_row"], "plain_ms": plain[kind],
-                       "library_ms": lib[kind], "library_gb_per_s":
-                       gathered * pd.REPEAT / lib[kind] / 1e6, **b,
-                       "share_of_bound": b["bound_ms"] / r["ms"]}
-                log({"bench": "probe_dma", **row, **common})
-                # the kernels line: the 128 MB set at 4 KB rows, ring depth 8
-                if rows == pd.HBM_ROWS[8] and sub == 8 and depth in (0, 8):
-                    entries[name] = row
+        for units, shapes in ((pd.SOURCE_UNITS, (1, 1000, pd.JAX_ROWS)),
+                              (pd.HBM_SOURCE_UNITS, (pd.HBM_ROWS[sub],))):
+            src = None        # free the last source first
+            src = pd.source(rng, units, "cuda")
+            for rows in shapes:
+                idx = pd.index(rng, src.shape[0] // sub, rows, "cuda")
+                probe_cases(pd, compare, idx, src, rows, sub)
+                if rows >= pd.JAX_ROWS:
+                    entries.update(probe_timing(pd, timed, idx, src, rows, sub, common))
     log({"phase": "probe_vs_plain", "cases": cases, "max_abs_err": max_err})
     replaces = {"gather_flood": "benchmarks/probe_dma.py:43",
                 "gather_ring": "benchmarks/probe_dma.py:94",
@@ -591,6 +552,70 @@ def probe_phase(common):
                     "shape": {"sub": 8, "rows": row["rows"], "repeat": pd.REPEAT,
                               "depth": row["depth"]}})
     return out
+
+
+def probe_cases(pd, compare, idx, src, rows, sub):
+    """Each probe against its plain version on one input: flood, ring of
+    depth 8 and 1, plane."""
+    what = f"sub={sub} rows={rows}"
+    gather = pd.gather_plain(idx, src, sub, pd.REPEAT)
+    compare("gather_flood", pd.gather_flood(idx, src, rows, sub, pd.REPEAT), gather, what)
+    for depth in (8, 1):
+        compare("gather_ring", pd.gather_ring(idx, src, rows, sub, pd.REPEAT, depth),
+                gather, f"{what} depth={depth}")
+    compare("plane_copy", pd.plane_copy(src, rows, sub, pd.REPEAT),
+            pd.plane_plain(src, rows, sub, pd.REPEAT), what)
+
+
+def probe_timing(pd, timed, idx, src, rows, sub, common):
+    """Logs each probe that probe_dma.run timed at this shape beside its
+    bound, its plain version and PyTorch's gather or copy over the same
+    bytes (`repeat` calls; index_select also writes the rows back to device
+    memory).  Returns the rows that go into the kernels line: the 1 GB set
+    at 4 KB rows, ring depth 8."""
+    import torch
+    src2d = src.view(-1, sub * pd.LANES)
+    dst = torch.empty(rows, sub * pd.LANES, dtype=torch.int32, device=src.device)
+
+    def lib_gather():
+        for _ in range(pd.REPEAT):
+            torch.index_select(src2d, 0, idx, out=dst)
+        return dst
+
+    def lib_copy():
+        for _ in range(pd.REPEAT):
+            dst.view(-1, pd.LANES).copy_(src[: rows * sub])
+        return dst
+
+    gathered = rows * sub * pd.SUBLANE_BYTES
+    lib = {"gather": time_ms(lib_gather), "copy": time_ms(lib_copy)}
+    plain = {"gather": time_ms(pd.gather_plain, idx, src, sub, pd.REPEAT),
+             "copy": time_ms(pd.plane_plain, src, rows, sub, pd.REPEAT)}
+    entries = {}
+    for name, depth, kind in (("gather_flood", 0, "gather"), ("gather_ring", 8, "gather"),
+                              ("gather_ring", 1, "gather"), ("plane_copy", 0, "copy")):
+        r = timed.get((name, depth, sub, rows))
+        if r is None:
+            continue
+        row = {"name": name, "depth": depth, "sub": sub, "rows": rows,
+               "distinct_bytes": r["distinct_bytes"], "l2_resident": r["l2_resident"],
+               "ms": r["ms"], "gb_per_s": r["gb_per_s"], "mrows_per_s": r["mrows_per_s"],
+               "ns_per_row": r["ns_per_row"], "plain_ms": plain[kind],
+               "library_ms": lib[kind],
+               "library_gb_per_s": gathered * pd.REPEAT / lib[kind] / 1e6}
+        if not r["l2_resident"]:
+            # device memory gives the distinct rows once and, on each later
+            # repeat, all but what L2 can keep; plus idx, out and the counts
+            d = r["distinct_bytes"]
+            nbytes = d + (pd.REPEAT - 1) * (d - pd.L2_BYTES) + 8 * pd.LANES * 4 + 16
+            if kind == "gather":
+                nbytes += rows * 4
+            b = bound(nbytes, gathered // 4)      # one add per word, last repeat
+            row.update(b, share_of_bound=b["bound_ms"] / r["ms"])
+        log({"bench": "probe_dma", **row, **common})
+        if rows == pd.HBM_ROWS[8] and sub == 8 and depth in (0, 8):
+            entries[name] = row
+    return entries
 
 
 def waterfall_phase(common):

@@ -11,10 +11,11 @@ kernel (csrc/probe_dma.cu) with the JAX function's name and arguments:
   * gather_ring:  the same gather with a depth-D ring (start k, wait k-D)
   * plane_copy:   the contiguous bound, src[0 : rows*sub]
 
-Each returns (out, checksum): out is the [8, 128] int32 block the JAX
-function returns (the first 8 sublanes of the first gathered row, or
+Each returns (out, checksum, landed): out is the [8, 128] int32 block the
+JAX function returns (the first 8 sublanes of the first gathered row, or
 src[0:8]), checksum a 0-d int64 tensor holding the wrapping uint32 sum of
-every word one repeat gathers.  For CPU tensors a wrapper runs its plain
+every word one repeat gathers, landed a 0-d int64 tensor holding the bytes
+that arrived over all repeats.  For CPU tensors a wrapper runs its plain
 PyTorch version (`gather_plain`, `plane_plain`, which the tests and
 chip_smoke.py use); for CUDA tensors it launches the kernel or raises.
 `launches` counts kernel launches by probe.
@@ -22,17 +23,16 @@ chip_smoke.py use); for CUDA tensors it launches the kernel or raises.
 Run on the card (prints one JSON line per measurement, the card's name
 and power limit in each):
 
-    python -m libpoporon_tpu_torch.benchmarks.probe_dma [--seed 0]
+    python -m libpoporon_tpu_torch.benchmarks.probe_dma
 
 It measures the JAX probe's shapes (65536 source rows of 8 sublanes, 2048
 rows gathered, 50 repeats: a gathered set of 8 to 32 MB, which stays in
-the 50 MB L2 after the first repeat) and, for each sub, a row count whose
-gathered set is 128 MB, so that every repeat reads device memory.
+the 50 MB L2 after the first repeat) and, for each sub, 1 GB gathered from
+a 4 GB source, about 18 times the L2, so that repeats read device memory.
 """
 
 from __future__ import annotations
 
-import argparse
 import json
 
 import numpy as np
@@ -51,8 +51,10 @@ MAX_SUB = SLOT_BYTES // SUBLANE_BYTES
 # The JAX probe's shapes (benchmarks/probe_dma.py:184-186).
 SOURCE_UNITS = 65536        # source rows of 8 sublanes; 256 MB at every sub
 JAX_ROWS, REPEAT = 2048, 50
-# Rows whose gathered set is 128 MB, by sub.
-HBM_ROWS = {8: 32768, 16: 16384, 32: 8192}
+# The device-memory shapes: a 4 GB source, and rows whose gathered set is
+# 1 GB by sub (about 0.9 GB of distinct rows).
+HBM_SOURCE_UNITS = 1 << 20
+HBM_ROWS = {sub: 2**30 // (sub * SUBLANE_BYTES) for sub in (8, 16, 32)}
 L2_BYTES = 50 * 2**20       # the H100's L2
 
 # Kernel launches by probe.
@@ -64,15 +66,20 @@ def _wrapsum(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.int64).sum() & 0xFFFFFFFF
 
 
-def gather_plain(idx, src, sub):
+def _landed(rows, sub, repeat):
+    return torch.tensor(repeat * rows * sub * SUBLANE_BYTES, dtype=torch.int64)
+
+
+def gather_plain(idx, src, sub, repeat):
     """Plain version of gather_flood and gather_ring."""
     i = idx.long()
-    return src.view(-1, sub, LANES)[i[0], :8].clone(), _wrapsum(src.view(-1, sub * LANES)[i])
+    return (src.view(-1, sub, LANES)[i[0], :8].clone(),
+            _wrapsum(src.view(-1, sub * LANES)[i]), _landed(len(i), sub, repeat).to(src.device))
 
 
-def plane_plain(src, rows, sub):
+def plane_plain(src, rows, sub, repeat):
     """Plain version of plane_copy."""
-    return src[:8].clone(), _wrapsum(src[: rows * sub])
+    return src[:8].clone(), _wrapsum(src[: rows * sub]), _landed(rows, sub, repeat).to(src.device)
 
 
 def _check(idx, src, rows, sub, repeat, depth=1):
@@ -109,14 +116,15 @@ def _launch(name, mode, idx, src, rows, sub, repeat, depth):
     out = torch.empty(8, LANES, dtype=torch.int32, device=dev)
     # the kernel adds into the low 32 bits, so the int64 holds the uint32 sum
     checksum = torch.zeros((), dtype=torch.int64, device=dev)
+    landed = torch.zeros((), dtype=torch.int64, device=dev)
     rc = build.load_library().pp_probe_dma(
         mode, None if idx is None else idx.data_ptr(), src.data_ptr(), out.data_ptr(),
-        checksum.data_ptr(), src.shape[0] // sub, rows, sub, repeat, depth,
-        dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+        checksum.data_ptr(), landed.data_ptr(), src.shape[0] // sub, rows, sub, repeat,
+        depth, dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     launches[name] += 1
-    return out, checksum
+    return out, checksum, landed
 
 
 def gather_flood(idx, src, rows, sub, repeat):
@@ -124,7 +132,7 @@ def gather_flood(idx, src, rows, sub, repeat):
     src: int32 [N, 128]), `repeat` times, in waves on one barrier."""
     _check(idx, src, rows, sub, repeat)
     if src.device.type == "cpu":
-        return gather_plain(idx, src, sub)
+        return gather_plain(idx, src, sub, repeat)
     return _launch("gather_flood", MODE_FLOOD, idx, src, rows, sub, repeat, 1)
 
 
@@ -132,7 +140,7 @@ def gather_ring(idx, src, rows, sub, repeat, depth=8):
     """The same gather through a ring of `depth` slots per block."""
     _check(idx, src, rows, sub, repeat, depth)
     if src.device.type == "cpu":
-        return gather_plain(idx, src, sub)
+        return gather_plain(idx, src, sub, repeat)
     return _launch("gather_ring", MODE_RING, idx, src, rows, sub, repeat, depth)
 
 
@@ -140,40 +148,45 @@ def plane_copy(src, rows, sub, repeat):
     """Copy src[0 : rows*sub], `repeat` times, in large contiguous pieces."""
     _check(None, src, rows, sub, repeat)
     if src.device.type == "cpu":
-        return plane_plain(src, rows, sub)
+        return plane_plain(src, rows, sub, repeat)
     return _launch("plane_copy", MODE_PLANE, None, src, rows, sub, repeat, 1)
 
 
 # ------------------------------------------------------------- measure
 
 
-def inputs(rng, sub, rows, device, src=None):
-    """The JAX probe's inputs: src int32 [SOURCE_UNITS*8, 128] in
-    [0, 2^30) (unless given) and idx int32 [rows] drawn with replacement
-    from the sub-sublane rows of src."""
-    nsrc = SOURCE_UNITS * 8 // sub
-    if src is None:
-        src = torch.from_numpy(
-            rng.integers(0, 1 << 30, (nsrc * sub, LANES), dtype=np.int32)).to(device)
-    idx = torch.from_numpy(rng.integers(0, nsrc, (rows,), dtype=np.int32)).to(device)
-    return idx, src
+def source(rng, units, device):
+    """src int32 [units*8, 128] in [0, 2^30), made on `device` from a seed
+    that rng draws."""
+    g = torch.Generator(device=device).manual_seed(int(rng.integers(1 << 62)))
+    return torch.randint(0, 1 << 30, (units * 8, LANES), generator=g, dtype=torch.int32,
+                         device=device)
+
+
+def index(rng, nsrc, rows, device):
+    """idx int32 [rows] drawn with replacement from nsrc source rows, as
+    the JAX probe draws it."""
+    return torch.from_numpy(rng.integers(0, nsrc, (rows,), dtype=np.int32)).to(device)
 
 
 def run(seed=0, warmup=3, iters=20):
     """Times every probe on the card, for each sub at the JAX shape and at
-    the 128 MB gathered set; yields one dict per measurement (probe, shape,
-    ms, Mrows/s, GB/s, ns/row, the card).  Raises where torch sees no CUDA
-    device."""
+    the 1 GB gathered set; yields one dict per measurement (probe, shape,
+    distinct bytes, ms, Mrows/s, GB/s, ns/row, the card).  Raises where
+    torch sees no CUDA device."""
     if not torch.cuda.is_available():
         raise RuntimeError("probe_dma measures the card, and torch sees no CUDA device")
     rng = np.random.default_rng(seed)
     card = card_info()
     for sub in (8, 16, 32):
-        src = None            # a new source for each sub, as the JAX main() draws it
-        for rows in (JAX_ROWS, HBM_ROWS[sub]):
-            idx, src = inputs(rng, sub, rows, "cuda", src)
+        for units, rows in ((SOURCE_UNITS, JAX_ROWS), (HBM_SOURCE_UNITS, HBM_ROWS[sub])):
+            src = None        # free the last source first
+            src = source(rng, units, "cuda")
+            idx = index(rng, src.shape[0] // sub, rows, "cuda")
             row_bytes = sub * SUBLANE_BYTES
             gathered = rows * row_bytes
+            distinct = {"gather": int(torch.unique(idx).numel()) * row_bytes,
+                        "plane": gathered}
             probes = [("gather_flood", 0, lambda: gather_flood(idx, src, rows, sub, REPEAT)),
                       ("gather_ring", 8, lambda: gather_ring(idx, src, rows, sub, REPEAT, 8)),
                       ("plane_copy", 0, lambda: plane_copy(src, rows, sub, REPEAT))]
@@ -183,21 +196,18 @@ def run(seed=0, warmup=3, iters=20):
             for name, depth, fn in probes:
                 meter = ThroughputMeter(rows * REPEAT)
                 dt = meter.measure(fn, warmup, iters)["seconds_per_call"]
+                d = distinct["plane" if name == "plane_copy" else "gather"]
                 yield {"probe": name, "depth": depth, "sub": sub, "row_kb": row_bytes // 1024,
-                       "rows": rows, "repeat": REPEAT, "gathered_mib": gathered / 2**20,
-                       "l2_resident": gathered <= L2_BYTES, "ms": dt * 1e3,
+                       "rows": rows, "repeat": REPEAT, "source_mib": src.numel() * 4 / 2**20,
+                       "gathered_mib": gathered / 2**20, "distinct_bytes": d,
+                       "l2_resident": d <= L2_BYTES, "ms": dt * 1e3,
                        "mrows_per_s": rows * REPEAT / dt / 1e6,
                        "gb_per_s": gathered * REPEAT / dt / 1e9,
                        "ns_per_row": dt / (rows * REPEAT) * 1e9, "card": card}
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--warmup", type=int, default=3)
-    ap.add_argument("--iters", type=int, default=20)
-    args = ap.parse_args(argv)
-    for line in run(args.seed, args.warmup, args.iters):
+def main():
+    for line in run():
         print(json.dumps(line), flush=True)
 
 

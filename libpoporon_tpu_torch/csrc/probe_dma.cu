@@ -6,16 +6,21 @@
 // `gather_flood` (:43, pallas_call :84), `gather_ring` (:94, :136) and
 // `plane_copy` (:146, :161).  Each computes what its Pallas function
 // computes, the [8, 128] int32 block `out` (the first 8 sublanes of the
-// first gathered row, or src[0:8] for the plane), and also a checksum: the
-// wrapping uint32 sum of every word the last repeat brought into shared
-// memory, so that a probe which copies nothing but row 0 cannot pass.  The
-// plain PyTorch versions are in libpoporon_tpu_torch/benchmarks/probe_dma.py.
+// first gathered row, or src[0:8] for the plane), and also two proofs of
+// the copies: a checksum, the wrapping uint32 sum of every word the last
+// repeat brought into shared memory, so that a probe which copies nothing
+// but row 0 cannot pass; and `landed`, the bytes that the completed
+// mbarrier phases of all repeats announced, so that a probe which skips
+// repeats cannot pass either.  The plain PyTorch versions are in
+// libpoporon_tpu_torch/benchmarks/probe_dma.py.
 //
 // What bounds it on an H100: bytes.  A call moves repeat * rows * sub * 512
 // bytes into shared memory (plus the index list and 4 KB of output) and does
-// almost no arithmetic, so its least time is those bytes over the 3.35 TB/s
-// of HBM.  Where the gathered set fits the 50 MB L2 (the JAX shapes, 8 to
-// 32 MB), repeats after the first read L2 and may beat that bound.
+// almost no arithmetic.  Of those, device memory must give its distinct rows
+// once and, on each later repeat, all but the 50 MB the L2 can have kept;
+// its least time is those bytes over the 3.35 TB/s of HBM.  Where the
+// gathered set fits L2 (the JAX shapes, 8 to 32 MB), repeats after the
+// first read L2 and no device-memory bound applies.
 //
 // Design.  The TPU form (one program on one core, a VMEM scratch of
 // rows * sub * 512 bytes, DMA semaphores) does not fit an SM, so:
@@ -34,8 +39,9 @@
 //   slots, so one piece lands while the next is in flight.
 // - Repeats before the last run on the issuing thread alone; in the last
 //   one every thread waits for each slot, adds its words to the checksum,
-//   and syncs before the slot is written again.  One atomic per block adds
-//   the block's sum.  Source offsets are 64-bit.
+//   and syncs before the slot is written again.  The issuing thread adds
+//   the bytes of each wait it passes, in every repeat.  One atomic per block
+//   adds the block's sum, one more its bytes.  Source offsets are 64-bit.
 
 #include <cassert>
 #include <cstdint>
@@ -58,6 +64,7 @@ struct Params {
   const uint8_t* src;      // [nsrc * sub, 128] int32
   int32_t* out;            // [8, 128]
   uint32_t* checksum;      // low word of a zeroed int64: the uint32 sum
+  unsigned long long* landed;  // a zeroed int64: bytes of the passed waits
   long long nsrc;
   int rows, sub, repeat;
   int depth;               // ring slots (ring, plane)
@@ -166,8 +173,10 @@ __device__ __forceinline__ void write_out(const uint8_t* slot, int32_t* out) {
   for (int i = threadIdx.x; i < kOutWords; i += kThreads) out[i] = w[i];
 }
 
-// Adds the block's sum of every thread's acc to *checksum with one atomic.
-__device__ void block_add(uint32_t acc, uint32_t* checksum) {
+// Adds the block's sum of every thread's acc to *checksum, and thread 0's
+// count of landed bytes to *landed, with one atomic each.
+__device__ void block_add(uint32_t acc, uint32_t* checksum, unsigned long long bytes,
+                          unsigned long long* landed) {
   __shared__ uint32_t warp_sums[kThreads / 32];
   for (int o = 16; o > 0; o >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, o);
   if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = acc;
@@ -176,6 +185,7 @@ __device__ void block_add(uint32_t acc, uint32_t* checksum) {
     uint32_t total = 0;
     for (int w = 0; w < kThreads / 32; ++w) total += warp_sums[w];
     atomicAdd(checksum, total);
+    atomicAdd(landed, bytes);
   }
 }
 
@@ -207,19 +217,22 @@ __global__ void __launch_bounds__(kThreads) flood_kernel(const Params p) {
     return m;
   };
 
+  unsigned long long landed = 0;   // thread 0's count
   if (threadIdx.x == 0)
     for (int r = 0; r + 1 < p.repeat; ++r)
-      for (int w = 0; w < waves; ++w) wave(w, (long long)r * waves + w);
+      for (int w = 0; w < waves; ++w)
+        landed += (unsigned long long)wave(w, (long long)r * waves + w) * row_bytes;
   __syncthreads();
   uint32_t acc = 0;
   for (int w = 0; w < waves; ++w) {
     const int m = wave(w, (long long)(p.repeat - 1) * waves + w);
+    landed += (unsigned long long)m * row_bytes;
     for (int i = 0; i < m; ++i) acc += sum_words(slots + (size_t)i * row_bytes, row_bytes);
     if (blockIdx.x == 0 && w == 0) write_out(slots, p.out);
     __syncthreads();
     if (threadIdx.x == 0) fence_proxy_async();
   }
-  block_add(acc, p.checksum);
+  block_add(acc, p.checksum, landed, p.landed);
 }
 
 // Where a block's ring stands: the slot the next item uses, and the parity
@@ -255,6 +268,7 @@ __global__ void __launch_bounds__(kThreads) ring_kernel(const Params p) {
   __syncthreads();
 
   uint32_t acc = 0;
+  unsigned long long landed = 0;   // thread 0's count
   // One repeat over the block's items from cursor c (every slot idle);
   // with `last`, every thread takes part and sums each item as it lands.
   // Returns the cursor after it.
@@ -266,6 +280,7 @@ __global__ void __launch_bounds__(kThreads) ring_kernel(const Params p) {
       bar_wait(&bars[d], (parity >> d) & 1);
       parity ^= 1u << d;
       if (++waiting == D) waiting = 0;
+      landed += item_bytes<MODE>(p, s, k);
       if (last) {
         const uint8_t* slot = slots + (size_t)d * p.slot_bytes;
         acc += sum_words(slot, item_bytes<MODE>(p, s, k));
@@ -299,7 +314,7 @@ __global__ void __launch_bounds__(kThreads) ring_kernel(const Params p) {
   }
   __syncthreads();
   pass(cursor_at((long long)(p.repeat - 1) * s.n, D), true);
-  block_add(acc, p.checksum);
+  block_add(acc, p.checksum, landed, p.landed);
 }
 
 template <class Kernel>
@@ -319,15 +334,17 @@ cudaError_t launch(Kernel kernel, const Params& p, int grid, size_t smem_bytes,
 // 2 plane_copy (`idx` unused).  `src` is [nsrc * sub, 128] int32 and 16-byte
 // aligned, `idx` [rows] int32 in [0, nsrc) (the kernel asserts it), `out`
 // [8, 128] int32, `checksum` an int64 set to 0 by the caller, whose low 32
-// bits receive the wrapping uint32 sum (little-endian).  sub is a
+// bits receive the wrapping uint32 sum (little-endian), `landed` an int64
+// set to 0 that receives the bytes of every completed wait.  sub is a
 // multiple of 8, at most 384; rows, repeat >= 1; plane_copy needs
 // rows <= nsrc.  Returns the launch's cudaError_t.
 extern "C" int pp_probe_dma(int mode, const void* idx, const void* src, void* out,
-                            void* checksum, long long nsrc, int rows, int sub,
-                            int repeat, int depth, int device, void* stream) {
+                            void* checksum, void* landed, long long nsrc, int rows,
+                            int sub, int repeat, int depth, int device, void* stream) {
   const long long row_bytes = (long long)sub * kSublaneBytes;
   if (rows < 1 || repeat < 1 || nsrc < 1 || sub < 8 || sub % 8 != 0 ||
-      row_bytes > kSlotBytes || src == nullptr || out == nullptr || checksum == nullptr)
+      row_bytes > kSlotBytes || src == nullptr || out == nullptr || checksum == nullptr ||
+      landed == nullptr)
     return (int)cudaErrorInvalidValue;
   if (mode != kPlane && idx == nullptr) return (int)cudaErrorInvalidValue;
   if (mode == kRing && (depth < 1 || depth > kMaxDepth || depth * row_bytes > kSlotBytes))
@@ -344,6 +361,7 @@ extern "C" int pp_probe_dma(int mode, const void* idx, const void* src, void* ou
   p.src = static_cast<const uint8_t*>(src);
   p.out = static_cast<int32_t*>(out);
   p.checksum = static_cast<uint32_t*>(checksum);
+  p.landed = static_cast<unsigned long long*>(landed);
   p.nsrc = nsrc;
   p.rows = rows;
   p.sub = sub;

@@ -37,9 +37,9 @@ SIGNATURES = {
     # mode, in, chan, graph, src, out, ok_out, iters_out,
     # batch, V, P, E, max_iter, device, stream
     "pp_ldpc_bp": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # mode, idx, src, out, checksum, nsrc, rows, sub, repeat, depth,
+    # mode, idx, src, out, checksum, landed, nsrc, rows, sub, repeat, depth,
     # device, stream
-    "pp_probe_dma": [_I, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _I, _P],
+    "pp_probe_dma": [_I, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -1,7 +1,8 @@
 """The port's DMA probes (libpoporon_tpu_torch/benchmarks/probe_dma.py) on
 the CPU: their plain versions against the JAX probes of
 benchmarks/probe_dma.py, run in Pallas TPU interpret mode, exact on the
-int32 output; the checksum against a numpy sum mod 2^32; the wrappers'
+int32 output; the checksum against a numpy sum mod 2^32 and the landed
+bytes against repeat x rows x row bytes; the wrappers'
 CPU route and argument checks; and the measurement tools' refusal to time
 anything but the card."""
 
@@ -63,19 +64,22 @@ def test_gather_matches_jax(jprobe, probe, sub, rows):
         want = jprobe.gather_flood(jidx, jsrc, rows, sub, REPEAT)
     else:
         want = jprobe.gather_ring(jidx, jsrc, rows, sub, REPEAT, depth=int(probe[4:]))
-    out, checksum = probe_dma.gather_plain(torch.from_numpy(idx), torch.from_numpy(src), sub)
+    out, checksum, landed = probe_dma.gather_plain(torch.from_numpy(idx),
+                                                   torch.from_numpy(src), sub, REPEAT)
     assert out.dtype == torch.int32 and np.array_equal(out.numpy(), np.asarray(want))
     rows_np = src.reshape(-1, sub * 128)[idx]
     assert int(checksum) == numpy_checksum(rows_np)
+    assert landed.dtype == torch.int64 and int(landed) == REPEAT * rows_np.nbytes
 
 
 @pytest.mark.parametrize("sub,rows", CASES)
 def test_plane_matches_jax(jprobe, sub, rows):
     _, src = inputs(sub, rows, seed=sub * rows)
     want = jprobe.plane_copy(jax.numpy.asarray(src), rows, sub, REPEAT)
-    out, checksum = probe_dma.plane_plain(torch.from_numpy(src), rows, sub)
+    out, checksum, landed = probe_dma.plane_plain(torch.from_numpy(src), rows, sub, REPEAT)
     assert np.array_equal(out.numpy(), np.asarray(want))
     assert int(checksum) == numpy_checksum(src[: rows * sub])
+    assert int(landed) == REPEAT * src[: rows * sub].nbytes
 
 
 @pytest.mark.parametrize("sub", [8, 16, 32])
@@ -84,13 +88,13 @@ def test_wrappers_on_cpu_run_the_plain_version(sub):
     ragged row count (one row included)."""
     for rows in (1, 5, 13):
         idx, src = (torch.from_numpy(a) for a in inputs(sub, rows, seed=rows))
-        want = probe_dma.gather_plain(idx, src, sub)
+        want = probe_dma.gather_plain(idx, src, sub, 3)
         for got in (probe_dma.gather_flood(idx, src, rows, sub, 3),
                     probe_dma.gather_ring(idx, src, rows, sub, 3),
                     probe_dma.gather_ring(idx, src, rows, sub, 3, depth=1)):
             assert all(torch.equal(a, b) for a, b in zip(got, want))
         got = probe_dma.plane_copy(src, rows, sub, 3)
-        want = probe_dma.plane_plain(src, rows, sub)
+        want = probe_dma.plane_plain(src, rows, sub, 3)
         assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert not any(probe_dma.launches.values()), probe_dma.launches
 
@@ -99,7 +103,7 @@ def test_checksum_wraps():
     """Words near 2^31 (negative as int32) sum modulo 2^32."""
     src = torch.full((16, 128), -1, dtype=torch.int32)
     idx = torch.tensor([1, 0, 1], dtype=torch.int32)
-    _, checksum = probe_dma.gather_flood(idx, src, 3, 8, 1)
+    _, checksum, _ = probe_dma.gather_flood(idx, src, 3, 8, 1)
     assert checksum.dtype == torch.int64
     assert int(checksum) == (3 * 8 * 128 * 0xFFFFFFFF) % (1 << 32)
 
@@ -164,4 +168,4 @@ def test_probe_main_refuses_the_cpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        probe_dma.main([])
+        probe_dma.main()
