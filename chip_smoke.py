@@ -18,8 +18,10 @@ each slice of the port:
   bits a row) and soft (`ldpc_config_default(128, RATE_1_2)`, int8 LLRs
   at about 1e-2 channel BER), checks that both decodes went through the
   BP kernel, holds the kernel's three entries against the plain version
-  over six configs, and times kernel, plain version, facade, adaptive
-  cascade, encode and the expanded-LLR `bp` entry.
+  over nine configs (the gate's largest codes, 512 B and 1024 B rate
+  1/2 and 1024 B rate 1/2 of column weight 4, among them), and times
+  kernel, plain version, facade, adaptive cascade, encode and the
+  expanded-LLR `bp` entry.
 - Measurement path: runs the DMA probes' entry point
   (`benchmarks.probe_dma.run`, the JAX probe's shapes and 1 GB gathered
   sets), checks that it launched all three probe kernels, holds each
@@ -56,7 +58,7 @@ from pathlib import Path
 import numpy as np
 
 BATCH = 131072          # bench.py's headline batch
-WARMUP, ITERS = 3, 10   # CUDA-event timing
+WARMUP, ITERS = 3, 10   # CUDA-event timing (profiling.time_ms's defaults)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 INT_OPS_PER_S = 132 * 64 * 1.98e9   # H100 SXM: SMs x INT32 lanes x boost clock
 
@@ -92,32 +94,18 @@ def rs_ops(nr: int, n: int, fs: int, errors, erasures: int = 0, syndromes: bool 
     return float(per_row.sum())
 
 
-def ldpc_ops(E: int, V: int, iters, hard: bool) -> float:
+def ldpc_ops(E: int, V: int, ok, iters) -> float:
     """Integer operations of BP decodes whose row i ran iters[i]
-    iterations: per row the unpack and v2c fill (V + E), the hard entry's
-    iteration-0 syndrome (E) and the output (V); per iteration the check
-    update (9 per edge: the two-minimum fold and the output select), the
-    var update (4 per edge, 2 per variable) and the syndrome (1 per
-    edge)."""
+    iterations and ended clean where ok[i]: per row the unpack and v2c fill
+    (V + E) and the output (V); per iteration the check update (9 per edge:
+    the two-minimum fold and the output select) and the var update (4 per
+    edge, 2 per variable); and one syndrome (1 per edge) per clean verdict.
+    A dirty verdict counts nothing: one unsatisfied check settles it.
+    Every operation counts one: the kernels use no paired (two-to-a-lane)
+    instructions."""
     B = iters.numel()
-    fixed = V + E + (E if hard else 0) + V
-    return float(B * fixed + iters.double().sum() * (14 * E + 2 * V))
-
-
-def time_ms(fn, *args, warmup=WARMUP, iters=ITERS) -> float:
-    """Mean milliseconds per call, by CUDA events over `iters` calls."""
-    import torch
-    for _ in range(warmup):
-        fn(*args)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn(*args)
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    return float(B * (2 * V + E) + ok.double().sum() * E
+                 + iters.double().sum() * (13 * E + 2 * V))
 
 
 def max_abs_err(got, want) -> int:
@@ -165,43 +153,7 @@ def erasure_case(rng, data, E, extra):
 
 LDPC_MI = 50        # the reference's default iteration budget (ldpc.c:23)
 LDPC_CASE_BATCHES = (1, 1000, 4097)     # phase 6: one row, ragged, > 4 * 1024
-
-
-def distinct_positions(rng, rows, n, k):
-    """[rows, k] positions in [0, n), distinct within each row (rows with a
-    repeat are drawn again): uniform, like bench.py's argsort draw
-    (bench.py:235), without its [rows, n] array of floats."""
-    pos = rng.integers(0, n, (rows, k))
-    while True:
-        s = np.sort(pos, axis=1)
-        dup = (s[:, 1:] == s[:, :-1]).any(axis=1)
-        if not dup.any():
-            return pos
-        pos[dup] = rng.integers(0, n, (int(dup.sum()), k))
-
-
-def flip_bits(word, pos, count=None):
-    """A copy of word (uint8 [B, bytes], bits MSB-first) with the bits at
-    pos [B, k] flipped; only the first count[i] of row i where given."""
-    word = word.copy()
-    use = (np.ones(pos.shape, bool) if count is None
-           else np.arange(pos.shape[1]) < count[:, None])
-    rows, p = np.nonzero(use)[0], pos[use]
-    np.bitwise_xor.at(word, (rows, p // 8), (1 << (7 - p % 8)).astype(np.uint8))
-    return word
-
-
-def channel_llr(word, nbits, sigma, seed):
-    """int8 channel LLRs of a transmitted word (uint8 tensor [B, bytes]):
-    +-90 by bit (negative = 1) plus N(0, sigma), rounded and clipped, as
-    bench.py:265-268 makes them, with the noise drawn on the word's device
-    from a seeded generator.  sigma 38.6 gives about 1e-2 channel BER."""
-    import torch
-    from libpoporon_tpu_torch.utils import bits
-    g = torch.Generator(device=word.device).manual_seed(seed)
-    sign = 1 - 2 * bits.unpack(word, nbits).to(torch.float32)
-    noise = torch.randn(sign.shape, generator=g, device=word.device) * sigma
-    return (sign * 90 + noise).round().clamp(-127, 127).to(torch.int8)
+LDPC_LARGE_BATCHES = (1, 1000)          # phase 6, 512 B and 1024 B codes
 
 
 def ldpc_main_path(pt, dev, rng):
@@ -211,6 +163,8 @@ def ldpc_main_path(pt, dev, rng):
     the facade on CPU tensors (the plain version).  Returns the codecs and
     the inputs for the timing phase."""
     import torch
+    from libpoporon_tpu_torch.benchmarks.bp_kernel import (channel_llr, distinct_positions,
+                                                            flip_bits)
     from libpoporon_tpu_torch.utils import bits
     hard = pt.create(pt.LdpcConfig(128, pt.LdpcRate.RATE_1_2), device="cuda")
     soft = pt.create(pt.ldpc_config_default(128, pt.LdpcRate.RATE_1_2), device="cuda")
@@ -277,11 +231,17 @@ def ldpc_main_path(pt, dev, rng):
 def ldpc_kernel_vs_plain(pt, dev, rng):
     """Phase 6: the BP kernel's three entries (packed hard, int8 soft, the
     expanded-LLR `bp` in hard and soft mode) against the plain version on
-    the card, exact on ok, output and iterations, over six configs and
-    LDPC_CASE_BATCHES rows mixing clean, noisy and junk rows, at
-    the full budget and at 1 iteration.  Returns the max_abs_err."""
+    the card, exact on ok, output and iterations, over six 128 B and 64 B
+    configs at LDPC_CASE_BATCHES rows and the gate's largest codes (512 B
+    and 1024 B rate 1/2, and 1024 B rate 1/2 of column weight 4) at
+    LDPC_LARGE_BATCHES, rows mixing clean, noisy and junk rows, at the full
+    budget and at 1 iteration.  Logs each config's launch form (layout in
+    shared or global memory, groups and threads a block), its largest
+    variable degree and blocks per SM.  Returns the max_abs_err."""
     import torch
+    from libpoporon_tpu_torch.benchmarks.bp_kernel import distinct_positions, flip_bits
     from libpoporon_tpu_torch.models.ldpc import LLR_INFINITY, LLR_MAX, LDPCCodec
+    from libpoporon_tpu_torch.models.ldpc_cuda import MODE_HARD_PACKED, MODE_SOFT_LLR8
     from libpoporon_tpu_torch.utils import bits
 
     r12 = pt.LdpcRate.RATE_1_2
@@ -294,6 +254,10 @@ def ldpc_kernel_vs_plain(pt, dev, rng):
         # V = 1365 (V % 8 != 0), and the inner deinterleave leaves gaps
         "128B-r34": pt.LdpcConfig(128, pt.LdpcRate.RATE_3_4, use_inner_interleave=True,
                                   use_outer_interleave=True),
+        "512B-r12": pt.LdpcConfig(512, r12),
+        "1024B-r12": pt.LdpcConfig(1024, r12),
+        # column weight 4: the global-memory form with var loops of kMaxDv
+        "1024B-r12-cw4": pt.LdpcConfig(1024, r12, column_weight=4),
     }
     cases = max_err = 0
     for name, cfg in configs.items():
@@ -302,7 +266,7 @@ def ldpc_kernel_vs_plain(pt, dev, rng):
         check(k is not None, f"LDPC {name}: no kernel")
         V = c.codeword_bits
         oks = {}
-        for B in LDPC_CASE_BATCHES:
+        for B in LDPC_LARGE_BATCHES if c.info_bytes > 128 else LDPC_CASE_BATCHES:
             info = rng.integers(0, 256, (B, c.info_bytes), dtype=np.uint8)
             word = c.interleave(torch.cat([torch.as_tensor(info, device=dev), c.encode(info)], 1))
             word = word.cpu().numpy()
@@ -341,7 +305,10 @@ def ldpc_kernel_vs_plain(pt, dev, rng):
                                     f"(max abs err {err})")
                     oks[f"{entry} B={B} mi={mi}"] = float(want[0].double().mean())
         log({"phase": "ldpc_kernel_vs_plain", "config": name, "V": V,
-             "edges": c.structure.num_edges_used, "ok_share": oks})
+             "edges": c.structure.num_edges_used, "form": k.form, "dv": k.dv,
+             "blocks_per_sm": {"hard": k.blocks_per_sm(MODE_HARD_PACKED, dev),
+                               "soft": k.blocks_per_sm(MODE_SOFT_LLR8, dev)},
+             "ok_share": oks})
     log({"phase": "ldpc_kernel_vs_plain", "cases": cases, "max_abs_err": max_err})
     return max_err
 
@@ -354,6 +321,7 @@ def ldpc_timing(pt, dev, main, common):
     use_kernel="off" (the plain version under the cascade), and encode.
     Returns the `ldpc_bp` entry of the kernels line."""
     import torch
+    from libpoporon_tpu_torch.utils.profiling import time_ms
 
     hard, soft = main["hard"], main["soft"]
     x, llr = main["x"], main["llr"]
@@ -398,13 +366,12 @@ def ldpc_timing(pt, dev, main, common):
              "kernel_mbit_per_s": mbit / ms * 1e3, "plain_mbit_per_s": mbit / plain_ms * 1e3,
              "kernel_codewords_per_s": BATCH / ms * 1e3,
              "plain_codewords_per_s": BATCH / plain_ms * 1e3,
-             "mean_iterations": float(got[2].double().mean()), **common})
-        s = c.structure
-        E, V, nbytes = s.num_edges_used, c.codeword_bits, (c.codeword_bits + 7) // 8
-        graph_bytes = 2 * (s.num_checks + 1 + E + V + 1 + E)
+             "mean_iterations": float(got[2].double().mean()), "form": c.kernel.form,
+             **common})
+        E, V, nbytes = c.structure.num_edges_used, c.codeword_bits, (c.codeword_bits + 7) // 8
         in_bytes = nbytes if kind == "hard" else V      # packed bytes or int8 LLRs
-        b = bound(BATCH * (in_bytes + nbytes + 1 + 4) + graph_bytes,
-                  ldpc_ops(E, V, got[2], kind == "hard"))
+        b = bound(BATCH * (in_bytes + nbytes + 1 + 4) + c.kernel.graph.numel(),
+                  ldpc_ops(E, V, got[0], got[2]))
         log({"bench": f"ldpc_{kind}_kernel_bound", "kernel_ms": ms, **b,
              "share_of_bound": b["bound_ms"] / ms, **common})
         if kind == "hard":
@@ -451,6 +418,7 @@ def ldpc_bp_entry_timing(dev, main, common):
     import torch
     from libpoporon_tpu_torch.models.ldpc import LLR_INFINITY, LLR_MAX
     from libpoporon_tpu_torch.utils import bits
+    from libpoporon_tpu_torch.utils.profiling import time_ms
 
     c = main["hard"]._ldpc
     V, E = c.codeword_bits, c.structure.num_edges_used
@@ -469,7 +437,7 @@ def ldpc_bp_entry_timing(dev, main, common):
     check(err == 0, f"LDPC bp entry B={BATCH}: kernel != plain (max abs err {err})")
     ms = time_ms(c.kernel.bp, llr, None, LDPC_MI)
     # llr [V+1, B] int16 in; bits [V+1, B] int8, ok and iters out
-    b = bound(BATCH * ((V + 1) * 2 + (V + 1) + 1 + 4), ldpc_ops(E, V, got[2], True))
+    b = bound(BATCH * ((V + 1) * 2 + (V + 1) + 1 + 4), ldpc_ops(E, V, got[0], got[2]))
     log({"bench": "ldpc_bp_entry_hard", "kernel_ms": ms, "plain_ms": plain_ms,
          "plain_calls": 1, "mean_iterations": float(got[2].double().mean()), **b,
          "share_of_bound": b["bound_ms"] / ms, **common})
@@ -574,6 +542,7 @@ def probe_timing(pd, timed, idx, src, rows, sub, common):
     memory).  Returns the rows that go into the kernels line: the 1 GB set
     at 4 KB rows, ring depth 8."""
     import torch
+    from libpoporon_tpu_torch.utils.profiling import time_ms
     src2d = src.view(-1, sub * pd.LANES)
     dst = torch.empty(rows, sub * pd.LANES, dtype=torch.int32, device=src.device)
 
@@ -667,7 +636,7 @@ def main() -> int:
     import libpoporon_tpu_torch as pt
     from libpoporon_tpu_torch.models.rs import RSCodec, _encode_np
     from libpoporon_tpu_torch.utils import build
-    from libpoporon_tpu_torch.utils.profiling import card_info
+    from libpoporon_tpu_torch.utils.profiling import card_info, time_ms
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")

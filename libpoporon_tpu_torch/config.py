@@ -112,9 +112,9 @@ class LdpcConfig:
     # decode (decode_*_adaptive).  0 -> 512.
     adaptive_batch_threshold: int = 0
     # Hand-written CUDA BP kernel (models/ldpc_cuda.py, csrc/ldpc_bp.cu).
-    # "auto": every decode of a structure the kernel supports (its soft
-    # state fits one block's shared memory, edges <= 65535: the 128-byte
-    # codes, 64 B rate-1/3 and 1024 B rate-1/2 among them) goes through
+    # "auto": every decode of a structure the kernel supports (one
+    # codeword's state fits one block's shared memory, edges <= 65535: the
+    # 128-byte codes, 64 B rate-1/3 and 1024 B rate-1/2 among them) goes through
     # the kernel wrapper, which launches the kernel for CUDA tensors and
     # runs the plain PyTorch version for CPU tensors.  Other structures
     # always run the plain version.  "off": the plain version everywhere.

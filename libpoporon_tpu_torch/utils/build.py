@@ -34,9 +34,14 @@ SIGNATURES = {
     # batch, size, nr, fcr, prim, prim_inv, device, stream
     "pp_rs_decode": [_I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
                      _I, _I, _I, _I, _I, _I, _I, _P],
-    # mode, in, chan, graph, src, out, ok_out, iters_out,
-    # batch, V, P, E, max_iter, device, stream
-    "pp_ldpc_bp": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # mode, in, chan, graph, out, ok_out, iters_out, counter, batch, V, P,
+    # E, runs, dv, has_src, max_iter, shared_graph, groups, threads, grid,
+    # device, stream
+    "pp_ldpc_bp": [_I, _P, _P, _P, _P, _P, _P, _P,
+                   _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # mode, V, P, E, runs, dv, has_src, shared_graph, groups, threads,
+    # device (returns blocks per SM, or a negative cudaError_t)
+    "pp_ldpc_bp_blocks_per_sm": [_I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I],
     # mode, idx, src, out, checksum, landed, nsrc, rows, sub, repeat, depth,
     # device, stream
     "pp_probe_dma": [_I, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _I, _P],

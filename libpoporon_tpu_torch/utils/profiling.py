@@ -2,11 +2,11 @@
 
 Counterpart of libpoporon_tpu/utils/profiling.py.  `trace` captures a
 torch.profiler trace of host and device activity and writes it into
-`log_dir` as a Chrome trace; `ThroughputMeter.measure` times a callable
-with CUDA events.  Both measure the card only: they raise where torch
-sees no CUDA device, and `measure` raises when its callable's results are
-not on a CUDA device, so that no CPU time is reported under a device
-metric's name.  `card_info` names the card and its power limit, which
+`log_dir` as a Chrome trace; `time_ms` and `ThroughputMeter.measure` time
+a callable with CUDA events.  `trace` and `measure` measure the card
+only: they raise where torch sees no CUDA device, and `measure` raises
+when its callable's results are not on a CUDA device, so that no CPU time
+is reported under a device metric's name.  `card_info` names the card and its power limit, which
 every number taken on it carries.
 """
 
@@ -68,6 +68,22 @@ def trace(log_dir: str):
     prof.export_chrome_trace(os.path.join(log_dir, f"trace_{time.time_ns()}.json"))
 
 
+def time_ms(fn, *args, warmup: int = 3, iters: int = 10) -> float:
+    """Mean milliseconds of `iters` calls of fn(*args) after `warmup`
+    calls, by CUDA events on the current stream."""
+    for _ in range(warmup):
+        fn(*args)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn(*args)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 class ThroughputMeter:
     """Steady-state throughput of a call on the card, by CUDA events.
 
@@ -90,17 +106,7 @@ class ThroughputMeter:
         if not found or any(t.device.type != "cuda" for t in found):
             raise RuntimeError("ThroughputMeter.measure: the call's results are not all "
                                "CUDA tensors, so its work is not timed on the card")
-        for _ in range(warmup - 1):
-            fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        end.synchronize()
-        dt = start.elapsed_time(end) / 1e3 / iters
+        dt = time_ms(fn, warmup=max(warmup - 1, 0), iters=iters) / 1e3
         stats = {
             "seconds_per_call": dt,
             "codewords_per_s": self.codewords / dt,

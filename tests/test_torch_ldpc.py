@@ -257,7 +257,7 @@ def test_kernel_wrapper_runs_plain_version_on_cpu(pair):
     assert_same(pl.kernel.bp_llr8_soft(w, 50), pl._plain("soft", w, 50))
     assert pl.kernel.launches == before == 0    # no launch for CPU tensors
     with pytest.raises(ValueError):
-        pl.kernel._launch(0, cw, None, None, pl.codeword_bytes, torch.uint8, 50)
+        pl.kernel._launch(0, cw, None, pl.codeword_bytes, torch.uint8, 50)
 
 
 def test_use_kernel_knob_and_gate():
