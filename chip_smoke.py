@@ -10,9 +10,10 @@ each slice of the port:
 
 - RS(255,223): drives the main path through the public facade at
   B = 131072 codewords (encode, flip 2 symbols per row, decode), checks
-  that the decode went through the kernel, holds the kernel against its
-  plain PyTorch version on the card in all three decode modes, and times
-  both.
+  that the decode went through both RS kernels (a plain decode is two
+  launches: the syndrome kernel, then the decode kernel), holds the
+  syndrome kernel and the decode in all three modes against their plain
+  PyTorch versions on the card, and times both.
 - LDPC 128-byte rate-1/2: drives the facade at B = 131072 in both
   configurations users run, hard (`LdpcConfig(128, RATE_1_2)`, 4 flipped
   bits a row) and soft (`ldpc_config_default(128, RATE_1_2)`, int8 LLRs
@@ -81,15 +82,23 @@ def bound(nbytes: float, ops: float) -> dict:
             "bound_bytes": nbytes, "bound_ops": ops}
 
 
+def syndrome_ops(nr: int, n: int) -> float:
+    """Integer operations of one row's syndromes: nr n / 4.  The product of
+    symbol j by the fixed powers alpha^(a_i (n-1-j)) of all nr syndromes is
+    one lookup in a table of position j, and one 32-bit XOR sums four
+    syndrome bytes, so only the sums count, four to an operation."""
+    return nr * n / 4
+
+
 def rs_ops(nr: int, n: int, fs: int, errors, erasures: int = 0, syndromes: bool = True) -> float:
-    """GF operations (a product or a sum is one) of RS decodes with
-    errors[i] corrections in row i: the syndromes (nr Horner passes over n
-    symbols) unless given; for rows with errors, the erasure locator
-    (erasures^2), BM over its nr - erasures trips, Chien over all fs
-    points, Omega, Forney and the verify of every syndrome."""
+    """Operations of RS decodes with errors[i] corrections in row i: the
+    syndromes (`syndrome_ops`) unless given; for rows with errors, the
+    erasure locator (erasures^2), BM over its nr - erasures trips, Chien
+    over all fs points, Omega, Forney and the verify of every syndrome, a
+    GF product or sum one operation each."""
     L = errors.double()
     with_err = (L > 0).double()
-    per_row = (2 * nr * n if syndromes else 0) + 2 * fs * L + 5 * L * L + 2 * nr * L
+    per_row = (syndrome_ops(nr, n) if syndromes else 0) + 2 * fs * L + 5 * L * L + 2 * nr * L
     per_row = per_row + with_err * (erasures ** 2 + 4 * nr * (nr - erasures))
     return float(per_row.sum())
 
@@ -147,6 +156,33 @@ def erasure_case(rng, data, E, extra):
         pos[i, : min(E, len(p))] = p[:E]
         bad[i, p] ^= rng.integers(1, 256, len(p)).astype(np.uint8)
     return bad, pos, np.full(B, E, np.int32)
+
+
+def syndrome_timing(kern, kernel_fn, plain_fn, args, common):
+    """Phase 4, the syndrome kernel alone at B = BATCH on the main path's
+    rows (`rs_kernel.calls`): equal to its plain version, then timed plain,
+    kernel, kernel, plain.  Its bound: per row `syndrome_ops`, and the row
+    read and nr int32 logs written, plus the column table and log table
+    once.  Returns the `rs_syndrome` entry of the kernels line, less
+    launches and max_abs_err."""
+    import torch
+    from libpoporon_tpu_torch.benchmarks.rs_kernel import time_in_turns
+
+    check(torch.equal(kernel_fn(*args), plain_fn(*args)), f"rs_syndrome B={BATCH}: kernel != plain")
+    t_kern, t_plain = time_in_turns(kernel_fn, plain_fn, args)
+    ms, plain_ms = sum(t_kern) / 2, sum(t_plain) / 2
+    d, p = args
+    nr, n = p.shape[1], d.shape[1] + p.shape[1]
+    b = bound(BATCH * (n + 4 * nr) + kern.columns.numel() * 4 + 256 * 4,
+              BATCH * syndrome_ops(nr, n))
+    log({"bench": "rs_syndrome", "kernel_ms": ms, "plain_ms": plain_ms,
+         "kernel_runs_ms": t_kern, "plain_runs_ms": t_plain,
+         "kernel_codewords_per_s": BATCH / ms * 1e3, "column_table_bytes": kern.columns.numel() * 4,
+         **b, "share_of_bound": b["bound_ms"] / ms, **common})
+    return {"name": "rs_syndrome", "route": "cuda",
+            "source": "libpoporon_tpu_torch/csrc/rs_decode.cu",
+            "replaces": "libpoporon_tpu/models/rs_pallas.py:203",
+            "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None}
 
 
 # ------------------------------------------------------------ LDPC slice
@@ -634,6 +670,7 @@ def main() -> int:
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
     import libpoporon_tpu_torch as pt
+    from libpoporon_tpu_torch.benchmarks import rs_kernel
     from libpoporon_tpu_torch.models.rs import RSCodec, _encode_np
     from libpoporon_tpu_torch.utils import build
     from libpoporon_tpu_torch.utils.profiling import card_info, time_ms
@@ -660,21 +697,19 @@ def main() -> int:
     kern = codec._rs.kernel
     check(kern is not None, "default RS config has no kernel")
     data = rng.integers(0, 256, (BATCH, 223), dtype=np.uint8)
-    rows = np.arange(BATCH)
-    pos0 = rng.integers(0, 223, BATCH)
-    pos1 = (pos0 + rng.integers(1, 223, BATCH)) % 223   # distinct from pos0
-    bad = data.copy()
-    bad[rows, pos0] ^= 0x55
-    bad[rows, pos1] ^= 0xAA
+    bad = rs_kernel.two_errors(rng, data)
 
-    kern.launches = 0
+    kern.launches = kern.syndrome_launches = 0
     t0 = time.perf_counter()
     enc = codec.encode(data)
     res = codec.decode(bad, enc.parity)
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
-    launches = kern.launches
-    check(launches >= 1, "the main path's decode did not launch the kernel")
+    launches, syn_launches = kern.launches, kern.syndrome_launches
+    # one plain decode: the syndrome kernel, then the decode kernel
+    check(launches == 2 and syn_launches == 1,
+          f"the main path's decode launched {launches} RS kernels, {syn_launches} "
+          "of them the syndrome kernel; a plain decode is 2 launches, 1 of them syndromes")
     check(res.ok.device.type == "cuda", "result not on the card")
     check(tuple(res.data.shape) == (BATCH, 223), f"data shape {tuple(res.data.shape)}")
     check(bool(res.ok.all()), f"{int((~res.ok).sum())} rows not recovered")
@@ -686,11 +721,23 @@ def main() -> int:
     check(np.array_equal(enc.parity[:256].cpu().numpy(), ref),
           "encode != NumPy LFSR reference")
     log({"phase": "main_path", "batch": BATCH, "seconds_with_transfers": main_s,
-         "launches": launches, "all_ok": True, "corrected": 2})
+         "launches": launches, "syndrome_launches": syn_launches, "all_ok": True,
+         "corrected": 2})
 
-    # ---- phase 3: kernel against its plain version, on the card
-    max_err = 0
-    cases = 0
+    # ---- phase 3: kernels against their plain versions, on the card
+    max_err = syn_err = 0
+    cases = syn_cases = 0
+
+    def compare_syndromes(tag, rs_, d, p):
+        """The syndrome kernel against exp2log[_syndrome] on CUDA tensors."""
+        nonlocal syn_err, syn_cases
+        got = rs_.kernel.syndromes(d, p)
+        want = rs_kernel.plain_syndromes(rs_, d.contiguous(), p.contiguous())
+        torch.cuda.synchronize()
+        err = max_abs_err([got], [want])
+        syn_err = max(syn_err, err)
+        syn_cases += 1
+        check(err == 0, f"syndrome kernel != plain in {tag} (max abs err {err})")
 
     def compare(tag, rs_, mode, d, p, *extra):
         nonlocal max_err, cases
@@ -730,9 +777,13 @@ def main() -> int:
             parity_only = B // 16
             nerr[:parity_only] = 0
             bd, bp = corrupt(rng, d, p, nerr, junk, parity_only)
+            bd_t, bp_t = torch.as_tensor(bd, device=dev), torch.as_tensor(bp, device=dev)
+            compare_syndromes(f"{name} B={B} size={size}", rs_, bd_t, bp_t)
+            if B > 1:   # rows from the second on: a base off 16-byte alignment
+                compare_syndromes(f"{name} B={B - 1} size={size} view", rs_,
+                                  bd_t[1:], bp_t[1:])
             compare(f"{name} plain B={B} size={size}", rs_, "plain", bd, bp)
-            sl = rs_.exp2log[rs_._syndrome(torch.as_tensor(bd, device=dev),
-                                           torch.as_tensor(bp, device=dev)).long()]
+            sl = rs_kernel.plain_syndromes(rs_, bd_t, bp_t)
             compare(f"{name} ext B={B} size={size}", rs_, "ext", bd, bp,
                     sl.to(torch.int32).cpu().numpy())
             if size < 8:
@@ -741,12 +792,13 @@ def main() -> int:
                 be, pos, cnt = erasure_case(rng, d, E, extra)
                 compare(f"{name} erasure E={E}+{extra} B={B} size={size}",
                         rs_, "erasure", be, p, pos, cnt)
-    log({"phase": "kernel_vs_plain", "cases": cases, "max_abs_err": max_err})
+    log({"phase": "kernel_vs_plain", "cases": cases, "max_abs_err": max_err,
+         "syndrome_cases": syn_cases, "syndrome_max_abs_err": syn_err})
 
     # ---- phase 4: timing at B = 131072 on the card
     common = {"batch": BATCH, "card": card, "warmup": WARMUP, "iters": ITERS}
 
-    def kernel_vs_plain(bench, kernel_fn, plain_fn, *args, in_bytes, **ops_kw):
+    def kernel_vs_plain(bench, kernel_fn, plain_fn, args, in_bytes, ops_kw):
         """Times both in the order plain, kernel, kernel, plain; checks
         that they agree and that every row decoded to the original.
         in_bytes: bytes a row reads; ops_kw: rs_ops's mode arguments.
@@ -756,9 +808,7 @@ def main() -> int:
               f"{bench}: kernel != plain")
         check(bool(got[0].all()) and torch.equal(got[1], data_dev),
               f"{bench}: rows not recovered")
-        t_plain = [time_ms(plain_fn, *args)]
-        t_kern = [time_ms(kernel_fn, *args), time_ms(kernel_fn, *args)]
-        t_plain.append(time_ms(plain_fn, *args))
+        t_kern, t_plain = rs_kernel.time_in_turns(kernel_fn, plain_fn, args)
         ms, plain_ms = sum(t_kern) / 2, sum(t_plain) / 2
         # plus data, parity, ok and count written, and the four GF tables
         b = bound(BATCH * (in_bytes + 223 + 32 + 1 + 4) + 4 * 256 * 4,
@@ -772,20 +822,15 @@ def main() -> int:
 
     data_dev = torch.as_tensor(data, device=dev)
     d_dev, p_dev = torch.as_tensor(bad, device=dev), enc.parity
-    ms, plain_ms, rs_bound = kernel_vs_plain("rs_decode_2err", kern.decode_plain,
-                                             rs._decode_plain, d_dev, p_dev, in_bytes=255)
-    # 32 erasures at the same positions in every row, as bench.py does
-    epos = np.sort(rng.choice(223, 32, replace=False)).astype(np.int32)
-    eras = data.copy()
-    eras[:, epos] ^= 0xFF
-    kernel_vs_plain("rs_erasure_32", kern.decode_erasure, rs._decode_erasure,
-                    torch.as_tensor(eras, device=dev), p_dev,
-                    torch.as_tensor(epos, device=dev).expand(BATCH, 32).contiguous(),
-                    torch.full((BATCH,), 32, dtype=torch.int32, device=dev),
-                    in_bytes=255 + 32 * 4 + 4, erasures=32)
-    s_log = rs.exp2log[rs._syndrome(d_dev, p_dev).long()]
-    kernel_vs_plain("rs_ext_syndrome", kern.decode_ext, rs._decode_ext_syndrome,
-                    d_dev, p_dev, s_log, in_bytes=255 + 32 * 4, syndromes=False)
+    eras, epos = rs_kernel.erasures_32(rng, data)
+    timed = rs_kernel.calls(codec, bad, p_dev, eras, epos)
+    ms, plain_ms, rs_bound = kernel_vs_plain("rs_decode_2err", *timed["k1_plain"],
+                                             in_bytes=255, ops_kw={})
+    kernel_vs_plain("rs_erasure_32", *timed["k2_erasure_32"],
+                    in_bytes=255 + 32 * 4 + 4, ops_kw={"erasures": 32})
+    kernel_vs_plain("rs_ext_syndrome", *timed["k3_ext"],
+                    in_bytes=255 + 32 * 4, ops_kw={"syndromes": False})
+    syn_entry = syndrome_timing(kern, *timed["syndromes"], common)
 
     off = pt.create(pt.RSConfig(use_kernel="off"), device="cuda")
     check(off._rs.kernel is None, "use_kernel='off' still has a kernel")
@@ -801,7 +846,7 @@ def main() -> int:
         "route": "cuda",
         "source": "libpoporon_tpu_torch/csrc/rs_decode.cu",
         "replaces": "libpoporon_tpu/models/rs_pallas.py:158",
-        "launches": launches,
+        "launches": launches,       # a plain decode: syndromes, then decode
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,
@@ -823,7 +868,9 @@ def main() -> int:
     probe_entries = probe_phase(common)
     waterfall_phase(common)
 
-    print(json.dumps({"kernels": [rs_entry, ldpc_entry, *probe_entries]}), flush=True)
+    syn_entry.update(launches=syn_launches, max_abs_err=syn_err)
+    print(json.dumps({"kernels": [rs_entry, syn_entry, ldpc_entry, *probe_entries]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,5 @@
-// Reed-Solomon decode over GF(2^8), one codeword per thread, for Hopper.
+// Reed-Solomon decode over GF(2^8) for Hopper: a syndrome kernel and a
+// decode kernel, one codeword per thread in each.
 //
 // Replaces libpoporon_tpu/models/rs_pallas.py `RSPallasDecoder._kernel`
 // in its three modes: plain, erasure and external syndrome (rs_pallas.py
@@ -7,20 +8,34 @@
 // bit, and is held against the plain PyTorch version in
 // libpoporon_tpu_torch/models/rs.py.
 //
-// What bounds it on an H100: at B = 131072 codewords of RS(255,223) the
-// kernel moves about 67 MB of HBM (about 20 us at 3.35 TB/s), but each
-// codeword needs about 8k GF products for its syndromes alone (nr Horner
-// passes over 255 symbols), plus Chien over up to 255 points for rows with
-// errors.  Each product is two shared-memory table loads and a few integer
-// ops, so shared-memory lookups and integer ALU work bound the kernel, not
-// HBM.
+// A plain or erasure decode is two launches: `rs_syndrome_kernel` writes
+// the log-form syndromes [B, nr], and `rs_decode_kernel` reads them as the
+// external-syndrome mode reads the caller's.  Why apart: the decode
+// kernel given the syndromes (ext mode) took 0.740 ms against 2.168 ms
+// for the same rows with its old Horner loop (B = 131072, two errors a
+// row; H100 80GB HBM3, 700 W), so the syndromes were two thirds of the
+// plain decode.
 //
-// Design, simple first:
+// Syndromes, bit-sliced.  S is linear over GF(2) in the word's bits: row
+// q*8 + b of G_syn (models/rs.py) is the syndrome contribution of bit b
+// (MSB first) of full-length position q.  The wrapper packs those rows
+// into a column table [fs][8][W] of 32-bit words (models/rs_cuda.py
+// `syndrome_columns`); the block stages it in shared memory, and each
+// thread XORs the columns of its word's set bits into W accumulators.
+// Every lane of a warp reads the column of the same symbol at once, so the
+// 16-byte table loads are broadcasts; there is no serial chain and no
+// table gather.  What bounds it: 8W XORs a bit (2,040 bits a codeword),
+// integer issue, not HBM (255 + 4 nr bytes a codeword).
+//
+// Decode, simple first.  What bounds it: for rows with errors, BM, Chien
+// over up to 255 points and Forney, each GF product two shared-memory
+// table loads and a few integer ops; not HBM (about 67 MB at B = 131072).
 // - One thread per codeword, 128 threads per block, grid ceil(B / 128);
 //   the ragged last block is masked here, so the host pads nothing.
 // - The block stages its 128 rows (data, then parity) into shared memory
-//   with coalesced byte copies, each thread decodes its own row in place,
-//   and the block copies the rows back the same way: the counterpart of
+//   with coalesced 16-byte loads (`stage_rows`, as the syndrome kernel
+//   does), each thread decodes its own row in place, and the block copies
+//   the rows back with coalesced byte stores: the counterpart of
 //   the in-kernel transposes at rs_pallas.py:176-187 and 494-505.  Rows are
 //   260 bytes apart (65 words), so the threads of a warp reading symbol j
 //   of their own rows hit 32 different banks.
@@ -32,8 +47,9 @@
 // - The erasure apply follows the XLA path (rs.py:534-542), not the
 //   Pallas kernel: locator slots past the E given positions read position
 //   0, and coefficients landing on one position are summed, not XORed.
-// Faster designs (a warp per codeword, bit-sliced syndromes on the tensor
-// cores, Chien skipped for clean rows ahead of time) wait for a trace.
+// The error path (BM over nr + 1 slots, Chien, Omega, Forney and verify in
+// local arrays) is the next to redesign; the ext mode's time is its
+// measure.
 
 #include <cstdint>
 
@@ -45,11 +61,9 @@ namespace {
 
 using gf8::kFs;
 
-constexpr int kThreads = 128;    // codewords per block
+constexpr int kThreads = 128;    // codewords per block of the decode kernel
 constexpr int kMaxRoots = 64;    // nr limit of the per-thread arrays
 constexpr int kRowStride = 260;  // bytes between staged rows
-
-enum Mode { kPlain = 0, kErasure = 1, kExt = 2 };
 
 struct Params {
   const uint8_t* data;      // [B, size]
@@ -57,7 +71,7 @@ struct Params {
   const int32_t* eras_pos;  // [B, eras_width] (erasure mode)
   const int32_t* eras_cnt;  // [B] (erasure mode)
   int eras_width;
-  const int32_t* s_log;     // [B, nr] log-form syndromes (ext mode)
+  const int32_t* s_log;     // [B, nr] log-form syndromes, fs = zero
   const int32_t* tables;    // [4, 256]: log, antilog, sec, inv
   uint8_t* data_out;        // [B, size]
   uint8_t* parity_out;      // [B, nr]
@@ -83,9 +97,10 @@ __device__ __forceinline__ int erasure_slot(const int32_t* pos, int width,
 }
 
 // error_correction_u8 (decode.c:17-230) on the word staged in `word`
-// (size data symbols, then nr parity symbols).  Corrects `word` in place
-// where the XLA path would, and returns ok; *corrected gets the count.
-template <int MODE>
+// (size data symbols, then nr parity symbols), from its log-form
+// syndromes.  Corrects `word` in place where the XLA path would, and
+// returns ok; *corrected gets the count.
+template <bool ERASURE>
 __device__ bool decode_row(const Params& p, const gf8::Tables& gf,
                            const int* sec, const int* inv, const int* va,
                            uint8_t* word, long long row, int* corrected) {
@@ -93,25 +108,15 @@ __device__ bool decode_row(const Params& p, const gf8::Tables& gf,
   const int pad = kFs - n;
   *corrected = 0;
 
-  // 1. Syndromes S_i = sum_j r_j alpha^{va_i (n-1-j)} by Horner, or the
-  //    given log-form syndromes (sentinel fs = no error).
+  // 1. Syndromes S_i = sum_j r_j alpha^{va_i (n-1-j)}, given in log form
+  //    (sentinel fs = no error; a log outside [0, fs] reads as zero).
   uint8_t S[kMaxRoots];
   bool has_err = false;
-  if (MODE == kExt) {
-    const int32_t* sl = p.s_log + row * nr;
-    for (int i = 0; i < nr; ++i) {
-      const int v = sl[i];
-      has_err |= v != kFs;
-      S[i] = (v >= 0 && v <= kFs) ? gf.antilog[v] : 0;
-    }
-  } else {
-    for (int i = 0; i < nr; ++i) {
-      const int a = va[i];
-      int s = 0;
-      for (int j = 0; j < n; ++j) s = gf.mul_alpha(s, a) ^ word[j];
-      S[i] = s;
-      has_err |= s != 0;
-    }
+  const int32_t* sl = p.s_log + row * nr;
+  for (int i = 0; i < nr; ++i) {
+    const int v = sl[i];
+    has_err |= v != kFs;
+    S[i] = (v >= 0 && v <= kFs) ? gf.antilog[v] : 0;
   }
   if (!has_err) return true;
 
@@ -122,7 +127,7 @@ __device__ bool decode_row(const Params& p, const gf8::Tables& gf,
   int ec = 0;  // erasure count, 8 bits wide as in the XLA path's BM
   const int32_t* pos = nullptr;
   int width = 0;
-  if (MODE == kErasure) {
+  if (ERASURE) {
     pos = p.eras_pos + row * p.eras_width;
     width = p.eras_width < nr ? p.eras_width : nr;
     const int cnt = p.eras_cnt[row];
@@ -139,7 +144,7 @@ __device__ bool decode_row(const Params& p, const gf8::Tables& gf,
   for (int j = 0; j <= nr; ++j) bp[j] = el[j];
   int pd = ec;
   for (int it = 1; it <= nr; ++it) {
-    if (MODE == kErasure && it <= ec) continue;
+    if (ERASURE && it <= ec) continue;
     int disc = 0;
     for (int j = 0; j < it; ++j) disc ^= gf.mul(el[j], S[it - 1 - j]);
     const int it_ec = (it + ec) & 0xFF;
@@ -223,7 +228,7 @@ __device__ bool decode_row(const Params& p, const gf8::Tables& gf,
   }
 
   // 9. Apply.
-  if (MODE == kErasure) {
+  if (ERASURE) {
     // Coefficient t at slot t's position, data region only; the sum of
     // the coefficients landing on one position is XORed in, low byte.
     for (int t = 0; t < deg; ++t) {
@@ -250,7 +255,49 @@ __device__ bool decode_row(const Params& p, const gf8::Tables& gf,
   return true;
 }
 
-template <int MODE>
+// Copies `rows` rows of a packed [rows, width] byte matrix at `src` into
+// shared rows kRowStride bytes apart, from column `col`, with NT threads:
+// coalesced 16-byte loads, each spread over the rows its bytes fall in;
+// the bytes before src's first 16-byte boundary and after the last whole
+// 16 go one at a time.
+template <int NT>
+__device__ __forceinline__ void stage_rows(const uint8_t* src, int width, int rows,
+                                           uint8_t* dst, int col) {
+  const int tid = threadIdx.x;
+  const int total = rows * width;
+  int head = (int)((16 - (reinterpret_cast<uintptr_t>(src) & 15)) & 15);
+  if (head > total) head = total;
+  const int vecs = (total - head) >> 4;
+  const int tail = head + (vecs << 4);
+  for (int i = tid; i < head; i += NT) {
+    const int r = i / width;
+    dst[r * kRowStride + col + i - r * width] = src[i];
+  }
+  for (int i = tail + tid; i < total; i += NT) {
+    const int r = i / width;
+    dst[r * kRowStride + col + i - r * width] = src[i];
+  }
+  const uint4* vsrc = reinterpret_cast<const uint4*>(src + head);
+#pragma unroll 4
+  for (int k = tid; k < vecs; k += NT) {
+    const uint4 v = vsrc[k];
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+    const int i = head + (k << 4);
+    const int r = i / width;
+    int c = i - r * width;
+    uint8_t* d = dst + r * kRowStride + col;
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      d[c] = (uint8_t)(w[e >> 2] >> (8 * (e & 3)));
+      if (++c == width) {
+        c = 0;
+        d += kRowStride;
+      }
+    }
+  }
+}
+
+template <bool ERASURE>
 __global__ void __launch_bounds__(kThreads) rs_decode_kernel(const Params p) {
   __shared__ int s_tab[4 * 256];
   __shared__ int s_va[kMaxRoots];
@@ -265,24 +312,16 @@ __global__ void __launch_bounds__(kThreads) rs_decode_kernel(const Params p) {
   for (int i = tid; i < 4 * 256; i += kThreads) s_tab[i] = p.tables[i];
   // verify-stage row constants a_i = ((fcr + i) * prim) mod fs
   for (int i = tid; i < nr; i += kThreads) s_va[i] = ((p.fcr + i) * p.prim) % kFs;
-  const uint8_t* dsrc = p.data + row0 * size;
-  for (int i = tid; i < rows * size; i += kThreads) {
-    const int r = i / size;
-    s_rows[r * kRowStride + (i - r * size)] = dsrc[i];
-  }
-  const uint8_t* psrc = p.parity + row0 * nr;
-  for (int i = tid; i < rows * nr; i += kThreads) {
-    const int r = i / nr;
-    s_rows[r * kRowStride + size + (i - r * nr)] = psrc[i];
-  }
+  stage_rows<kThreads>(p.data + row0 * size, size, rows, s_rows, 0);
+  stage_rows<kThreads>(p.parity + row0 * nr, nr, rows, s_rows, size);
   __syncthreads();
 
   if (tid < rows) {
     const gf8::Tables gf{s_tab, s_tab + 256};
     int corrected;
-    const bool ok = decode_row<MODE>(p, gf, s_tab + 512, s_tab + 768, s_va,
-                                     s_rows + tid * kRowStride, row0 + tid,
-                                     &corrected);
+    const bool ok = decode_row<ERASURE>(p, gf, s_tab + 512, s_tab + 768, s_va,
+                                        s_rows + tid * kRowStride, row0 + tid,
+                                        &corrected);
     p.ok_out[row0 + tid] = ok;
     p.corrected_out[row0 + tid] = corrected;
   }
@@ -300,12 +339,141 @@ __global__ void __launch_bounds__(kThreads) rs_decode_kernel(const Params p) {
   }
 }
 
+// ---------------------------------------------------------------- syndromes
+
+constexpr int kSynThreads = 128;  // codewords per block of the syndrome kernel
+
+struct SynParams {
+  const uint8_t* data;    // [B, size]
+  const uint8_t* parity;  // [B, nr]
+  const uint4* columns;   // [fs][8][W] 32-bit words (syndrome_columns)
+  const int32_t* log;     // [256] value -> log, log[0] = fs
+  int32_t* s_log_out;     // [B, nr]
+  int batch, size, nr;
+};
+
+// XORs into acc the columns of the set bits of the symbol in sym's low
+// byte (bit 7 first, as G_syn's rows); `col` is the symbol's [8][W] words.
+// Every lane reads the same column: broadcasts.
+template <int W>
+__device__ __forceinline__ void add_symbol(uint32_t (&acc)[W], const uint4* col,
+                                           uint32_t sym) {
+#pragma unroll
+  for (int b = 0; b < 8; ++b) {
+    const uint32_t m = 0u - ((sym >> (7 - b)) & 1u);
+#pragma unroll
+    for (int v = 0; v < W / 4; ++v) {
+      const uint4 t = col[b * (W / 4) + v];
+      acc[4 * v] ^= t.x & m;
+      acc[4 * v + 1] ^= t.y & m;
+      acc[4 * v + 2] ^= t.z & m;
+      acc[4 * v + 3] ^= t.w & m;
+    }
+  }
+}
+
+template <int W>
+constexpr int syndrome_smem() {
+  return kFs * 8 * W * 4 + 256 * 4 + kSynThreads * kRowStride;
+}
+
+// One thread per codeword: S = the XOR of the table columns of the word's
+// set bits.  Accumulator byte i (little-endian over the W words) is S_i,
+// by the table's bit order; thread writes log[S_i] over its staged row,
+// and the block copies the rows out.
+template <int W>
+__global__ void __launch_bounds__(kSynThreads) rs_syndrome_kernel(const SynParams p) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint4* s_col = reinterpret_cast<uint4*>(smem);                // [fs][8][W]
+  int* s_logt = reinterpret_cast<int*>(smem + kFs * 8 * W * 4);  // [256]
+  uint8_t* s_rows = smem + kFs * 8 * W * 4 + 256 * 4;           // [rows][260]
+
+  const int tid = threadIdx.x;
+  const long long row0 = (long long)blockIdx.x * kSynThreads;
+  const long long left = p.batch - row0;
+  const int rows = left < kSynThreads ? (int)left : kSynThreads;
+  const int size = p.size, nr = p.nr, n = size + nr;
+
+  for (int i = tid; i < kFs * 2 * W; i += kSynThreads) s_col[i] = p.columns[i];
+  for (int i = tid; i < 256; i += kSynThreads) s_logt[i] = p.log[i];
+  stage_rows<kSynThreads>(p.data + row0 * size, size, rows, s_rows, 0);
+  stage_rows<kSynThreads>(p.parity + row0 * nr, nr, rows, s_rows, size);
+  __syncthreads();
+
+  if (tid < rows) {
+    const uint8_t* word = s_rows + tid * kRowStride;
+    const uint4* col = s_col + (kFs - n) * 2 * W;  // column of symbol 0
+    uint32_t acc[W] = {};
+    int j = 0;
+    for (; j + 4 <= n; j += 4) {
+      const uint32_t x = *reinterpret_cast<const uint32_t*>(word + j);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) add_symbol<W>(acc, col + (j + e) * 2 * W, x >> (8 * e));
+    }
+    for (; j < n; ++j) add_symbol<W>(acc, col + j * 2 * W, word[j]);
+    int32_t* out = reinterpret_cast<int32_t*>(s_rows + tid * kRowStride);
+#pragma unroll
+    for (int i = 0; i < 4 * W; ++i)
+      if (i < nr) out[i] = s_logt[(acc[i >> 2] >> (8 * (i & 3))) & 0xFF];
+  }
+  __syncthreads();
+
+  // a warp a row, coalesced
+  int32_t* dst = p.s_log_out + row0 * nr;
+  for (int r = tid >> 5; r < rows; r += kSynThreads / 32) {
+    const int32_t* src = reinterpret_cast<const int32_t*>(s_rows + r * kRowStride);
+    for (int c = tid & 31; c < nr; c += 32) dst[r * nr + c] = src[c];
+  }
+}
+
+template <int W>
+cudaError_t launch_syndromes(const SynParams& p, cudaStream_t st) {
+  constexpr int smem = syndrome_smem<W>();
+  const cudaError_t set = cudaFuncSetAttribute(
+      rs_syndrome_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (set != cudaSuccess) return set;
+  const dim3 grid((unsigned)((p.batch + kSynThreads - 1) / kSynThreads));
+  rs_syndrome_kernel<W><<<grid, kSynThreads, smem, st>>>(p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
+// Writes the log-form syndromes s_log_out [B, nr] int32 (log[S_i], fs
+// where S_i = 0: the decode's s_log) of the rows data [B, size] | parity
+// [B, nr] on `stream` (a cudaStream_t) of `device`; allocates nothing.
+// `columns` is the [fs][8][words] table of models/rs_cuda.py
+// `syndrome_columns` for this nr (words = 4, 8 or 16, at least nr / 4),
+// `tables` the decode's [4, 256] (log first).  Returns the launch's
+// cudaError_t.
+extern "C" int pp_rs_syndrome(const void* data, const void* parity, const void* columns,
+                              const void* tables, void* s_log_out, int batch, int size,
+                              int nr, int words, int device, void* stream) {
+  if (batch < 1 || size < 1 || nr < 1 || nr > kMaxRoots || size + nr > kFs ||
+      (words != 4 && words != 8 && words != 16) || 4 * words < nr)
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return (int)set;
+  const SynParams p = {static_cast<const uint8_t*>(data),
+                       static_cast<const uint8_t*>(parity),
+                       static_cast<const uint4*>(columns),
+                       static_cast<const int32_t*>(tables),
+                       static_cast<int32_t*>(s_log_out),
+                       batch, size, nr};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (words) {
+    case 4: return (int)launch_syndromes<4>(p, st);
+    case 8: return (int)launch_syndromes<8>(p, st);
+    default: return (int)launch_syndromes<16>(p, st);
+  }
+}
+
 // Launches the decode on `stream` (a cudaStream_t) of `device`; allocates
-// nothing.  mode: 0 plain, 1 erasure (eras_pos, eras_cnt, eras_width),
-// 2 external syndrome (s_log).  Returns the launch's cudaError_t.
-extern "C" int pp_rs_decode(int mode, const void* data, const void* parity,
+// nothing.  s_log: the log-form syndromes [B, nr] (pp_rs_syndrome's, or
+// the caller's in the external-syndrome path).  erasure: 1 starts BM from
+// the erasure locator of eras_pos, eras_cnt (eras_width wide), 0 from 1.
+// Returns the launch's cudaError_t.
+extern "C" int pp_rs_decode(int erasure, const void* data, const void* parity,
                             const void* eras_pos, const void* eras_cnt,
                             int eras_width, const void* s_log,
                             const void* tables, void* data_out,
@@ -313,9 +481,10 @@ extern "C" int pp_rs_decode(int mode, const void* data, const void* parity,
                             void* corrected_out, int batch, int size, int nr,
                             int fcr, int prim, int prim_inv, int device,
                             void* stream) {
-  if (batch < 1 || size < 1 || nr < 1 || nr > kMaxRoots || size + nr > kFs)
+  if (batch < 1 || size < 1 || nr < 1 || nr > kMaxRoots || size + nr > kFs ||
+      s_log == nullptr)
     return (int)cudaErrorInvalidValue;
-  if (mode == kErasure && (eras_width < 1 || eras_width > nr))
+  if (erasure && (eras_width < 1 || eras_width > nr))
     return (int)cudaErrorInvalidValue;
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
@@ -341,18 +510,9 @@ extern "C" int pp_rs_decode(int mode, const void* data, const void* parity,
 
   const dim3 grid((unsigned)((batch + kThreads - 1) / kThreads));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (mode) {
-    case kPlain:
-      rs_decode_kernel<kPlain><<<grid, kThreads, 0, st>>>(p);
-      break;
-    case kErasure:
-      rs_decode_kernel<kErasure><<<grid, kThreads, 0, st>>>(p);
-      break;
-    case kExt:
-      rs_decode_kernel<kExt><<<grid, kThreads, 0, st>>>(p);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  if (erasure)
+    rs_decode_kernel<true><<<grid, kThreads, 0, st>>>(p);
+  else
+    rs_decode_kernel<false><<<grid, kThreads, 0, st>>>(p);
   return (int)cudaGetLastError();
 }

@@ -29,7 +29,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # name -> argtypes of every C entry point; each returns a cudaError_t
 SIGNATURES = {
-    # mode, data, parity, eras_pos, eras_cnt, eras_width, s_log, tables,
+    # data, parity, columns, tables, s_log_out, batch, size, nr, words,
+    # device, stream
+    "pp_rs_syndrome": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # erasure, data, parity, eras_pos, eras_cnt, eras_width, s_log, tables,
     # data_out, parity_out, ok_out, corrected_out,
     # batch, size, nr, fcr, prim, prim_inv, device, stream
     "pp_rs_decode": [_I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
