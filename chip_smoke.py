@@ -13,7 +13,9 @@ each slice of the port:
   that the decode went through both RS kernels (a plain decode is two
   launches: the syndrome kernel, then the decode kernel), holds the
   syndrome kernel and the decode in all three modes against their plain
-  PyTorch versions on the card, and times both.
+  PyTorch versions on the card (rows within and past the code's
+  capacity, erasures with extra errors, so that BM runs long with
+  nonzero discrepancies), and times both.
 - LDPC 128-byte rate-1/2: drives the facade at B = 131072 in both
   configurations users run, hard (`LdpcConfig(128, RATE_1_2)`, 4 flipped
   bits a row) and soft (`ldpc_config_default(128, RATE_1_2)`, int8 LLRs
@@ -91,15 +93,21 @@ def syndrome_ops(nr: int, n: int) -> float:
 
 
 def rs_ops(nr: int, n: int, fs: int, errors, erasures: int = 0, syndromes: bool = True) -> float:
-    """Operations of RS decodes with errors[i] corrections in row i: the
-    syndromes (`syndrome_ops`) unless given; for rows with errors, the
-    erasure locator (erasures^2), BM over its nr - erasures trips, Chien
-    over all fs points, Omega, Forney and the verify of every syndrome, a
-    GF product or sum one operation each."""
+    """Operations of RS decodes with errors[i] corrections in row i (L, the
+    locator's degree): the syndromes (`syndrome_ops`) unless given; for
+    rows with errors, the erasure locator (erasures^2), BM, Chien over all
+    fs points, Omega, Forney and the verify of every syndrome, a GF
+    product or sum one operation each.  BM (`bm_ops`) needs the
+    discrepancy over L + 1 terms on each of its nr - erasures trips, and
+    the update of L + 1 slots of the locator and of the b polynomial on
+    the trips whose discrepancy is not zero: at most 2 (L - erasures) of
+    them, and no more than the trips BM runs."""
     L = errors.double()
     with_err = (L > 0).double()
+    trips = nr - erasures
+    bm_ops = 2 * trips * (L + 1) + 4 * (L + 1) * (2 * (L - erasures)).clamp(0, trips)
     per_row = (syndrome_ops(nr, n) if syndromes else 0) + 2 * fs * L + 5 * L * L + 2 * nr * L
-    per_row = per_row + with_err * (erasures ** 2 + 4 * nr * (nr - erasures))
+    per_row = per_row + with_err * (erasures ** 2 + bm_ops)
     return float(per_row.sum())
 
 
@@ -688,7 +696,7 @@ def main() -> int:
     build.load_library()
     build_s = time.perf_counter() - t0
     ptxas = [ln.strip() for ln in so.with_suffix(".log").read_text().splitlines()
-             if "registers" in ln or "spill" in ln]
+             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     log({"phase": "build", "seconds": build_s, "library": so.name, "ptxas": ptxas})
 
     # ---- phase 2: the main path through the facade, B = 131072
@@ -792,6 +800,21 @@ def main() -> int:
                 be, pos, cnt = erasure_case(rng, d, E, extra)
                 compare(f"{name} erasure E={E}+{extra} B={B} size={size}",
                         rs_, "erasure", be, p, pos, cnt)
+        # rows on which BM runs long with nonzero discrepancies: t+1..t+3
+        # errors a row, and E = 1, nr/4, nr/2 erasures with (nr - E)/2 and
+        # (nr - E)/2 + 1 extra errors
+        B = 4096
+        d = rng.integers(0, 256, (B, k), dtype=np.uint8)
+        p = rs_.encode(d).cpu().numpy()
+        bd, bp = corrupt(rng, d, p, rng.integers(nr // 2 + 1, nr // 2 + 4, B))
+        compare(f"{name} plain B={B} t+1..t+3 errors", rs_, "plain", bd, bp)
+        sl = rs_kernel.plain_syndromes(rs_, torch.as_tensor(bd, device=dev),
+                                       torch.as_tensor(bp, device=dev))
+        compare(f"{name} ext B={B} t+1..t+3 errors", rs_, "ext", bd, bp, sl.cpu().numpy())
+        for E in (1, nr // 4, nr // 2):
+            for extra in ((nr - E) // 2, (nr - E) // 2 + 1):
+                be, pos, cnt = erasure_case(rng, d, E, extra)
+                compare(f"{name} erasure E={E}+{extra} B={B}", rs_, "erasure", be, p, pos, cnt)
     log({"phase": "kernel_vs_plain", "cases": cases, "max_abs_err": max_err,
          "syndrome_cases": syn_cases, "syndrome_max_abs_err": syn_err})
 

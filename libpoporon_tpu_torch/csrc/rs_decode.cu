@@ -27,9 +27,10 @@
 // table gather.  What bounds it: 8W XORs a bit (2,040 bits a codeword),
 // integer issue, not HBM (255 + 4 nr bytes a codeword).
 //
-// Decode, simple first.  What bounds it: for rows with errors, BM, Chien
-// over up to 255 points and Forney, each GF product two shared-memory
-// table loads and a few integer ops; not HBM (about 67 MB at B = 131072).
+// Decode, simple first.  What bounds it: for rows with errors, Chien over
+// up to 255 points, BM, Forney and verify, each GF product two
+// shared-memory table loads and a few integer ops, on state in local
+// memory; not HBM (67 to 84 MB at B = 131072, about 0.025 ms).
 // - One thread per codeword, 128 threads per block, grid ceil(B / 128);
 //   the ragged last block is masked here, so the host pads nothing.
 // - The block stages its 128 rows (data, then parity) into shared memory
@@ -47,9 +48,24 @@
 // - The erasure apply follows the XLA path (rs.py:534-542), not the
 //   Pallas kernel: locator slots past the E given positions read position
 //   0, and coefficients landing on one position are summed, not XORed.
-// The error path (BM over nr + 1 slots, Chien, Omega, Forney and verify in
-// local arrays) is the next to redesign; the ext mode's time is its
-// measure.
+//
+// Berlekamp-Massey, bounded by tracked degrees.  The TPU's BM (rs_pallas.py
+// `bm_body`; rs.py `_bm_planes`) runs nr fixed trips, each a discrepancy
+// over `it` terms and an update of all nr + 1 slots of the locator and of
+// the shifted b polynomial, which fits a lane-parallel vector unit.  On a
+// thread per codeword that is about 1,600 GF products a row at nr = 32
+// whatever the locator's degree L, and after trip 2L every discrepancy is
+// zero.  Here the thread keeps both polynomials' degrees, sums the
+// discrepancy over L + 1 terms, skips the update when it is zero, updates
+// only the slots the b polynomial reaches, and shifts b by a count, not by
+// moving it (step 3 says why each cut is exact): about 2 nr (L + 1) +
+// 8 L (L + 1) products and sums.  The locator is the fixed loop's, bit for
+// bit (tests/test_torch_rs_bm.py emulates this loop against the JAX one).
+// Chien, Omega, Forney and verify are as before; the ext mode's time
+// (decode kernel alone) is this stage's measure: 0.685 -> 0.28 ms at
+// B = 131072, two errors a row (H100 80GB HBM3, 700 W).  ptxas: 80
+// registers in both modes, a 528-byte stack frame (the per-thread
+// arrays), no spills.
 
 #include <cstdint>
 
@@ -140,24 +156,56 @@ __device__ bool decode_row(const Params& p, const gf8::Tables& gf,
     ec = cnt & 0xFF;
   }
 
-  // 3. Berlekamp-Massey, nr trips; trips it <= ec are skipped.
-  for (int j = 0; j <= nr; ++j) bp[j] = el[j];
-  int pd = ec;
+  // 3. Berlekamp-Massey, nr trips; trips it <= ec are skipped.  The fixed
+  //    loop's el and bp (each over nr + 1 slots, bp shifted a slot a trip)
+  //    are kept bounded by tracked degrees: del and dbp are the highest
+  //    nonzero slots of el and of bp as stored, every slot above them is
+  //    zero, and the fixed loop's bp is x^s times the stored one.  Exact:
+  //    - a discrepancy term el_j S_{it-1-j} with j > del is zero;
+  //    - disc = 0 leaves el as it is and never grows, so the trip is
+  //      bp's shift alone: s + 1;
+  //    - el_j picks up disc bp_{j-1-s} only for s < j <= s + dbp + 1;
+  //    - the fixed shift drops bp's slot nr, but the update reads bp only
+  //      below slot nr (j - 1 < nr), so that slot never counts;
+  //    - a grow stores el_old / disc over the slots up to max(del, top)
+  //      >= dbp, which clears the old bp above its new degree, del_old.
+  //    The grow test, pd and the skipped trips keep their 8-bit wraps.
+  int del = 0;
+  for (int j = 1; j <= nr; ++j)
+    if (el[j]) del = j;
+  for (int j = 0; j <= del; ++j) bp[j] = el[j];
+  int dbp = del, s = 0, pd = ec;
   for (int it = 1; it <= nr; ++it) {
     if (ERASURE && it <= ec) continue;
+    const int dj = del < it - 1 ? del : it - 1;
     int disc = 0;
-    for (int j = 0; j < it; ++j) disc ^= gf.mul(el[j], S[it - 1 - j]);
-    const int it_ec = (it + ec) & 0xFF;
-    const bool grow =
-        disc != 0 && ((2 * pd) & 0xFF) <= ((it_ec - 1) & 0xFF);
-    const int dinv = inv[disc];
-    for (int j = nr; j >= 1; --j) {
-      const int e = el[j];
-      el[j] = e ^ gf.mul(disc, bp[j - 1]);
-      bp[j] = grow ? gf.mul(e, dinv) : bp[j - 1];
+    for (int j = 0; j <= dj; ++j) disc ^= gf.mul(el[j], S[it - 1 - j]);
+    if (disc == 0) {
+      ++s;
+      continue;
     }
-    bp[0] = grow ? gf.mul(el[0], dinv) : 0;
-    if (grow) pd = (it_ec - pd) & 0xFF;
+    const int it_ec = (it + ec) & 0xFF;
+    const bool grow = ((2 * pd) & 0xFF) <= ((it_ec - 1) & 0xFF);
+    const int top = s + dbp + 1 < nr ? s + dbp + 1 : nr;  // highest el slot bp reaches
+    int hi = top;
+    if (grow) {
+      // descending, so bp[j - 1 - s] is read before this trip writes it
+      hi = del > top ? del : top;
+      const int dinv = inv[disc];
+      for (int j = hi; j >= 0; --j) {
+        const int e = el[j];
+        if (j > s && j <= top) el[j] = e ^ gf.mul(disc, bp[j - 1 - s]);
+        bp[j] = gf.mul(e, dinv);
+      }
+      dbp = del;
+      s = 0;
+      pd = (it_ec - pd) & 0xFF;
+    } else {
+      for (int j = top; j > s; --j) el[j] ^= gf.mul(disc, bp[j - 1 - s]);
+      ++s;
+    }
+    if (hi > del) del = hi;
+    while (del > 0 && el[del] == 0) --del;
   }
 
   // 4. Degree.
