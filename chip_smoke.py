@@ -32,6 +32,16 @@ each slice of the port:
   all repeats) and times PyTorch's own gather and copy beside it; then runs the BER waterfall (`benchmarks.waterfall`) on the
   card, soft and hard, checks that it went through the BP kernel and that
   its lines equal the CPU run's on a small batch.
+- BCH, streaming and the C-shaped shim (plain PyTorch and the kernels
+  above): BCH(15,5) at B = 131072 through the bit, word and byte APIs,
+  each equal to the same call on the CPU, timed, with the device kernels
+  of one decode_bits call counted from a torch.profiler trace;
+  BCH(31,21), BCH(63,51) and BCH(4095,4071) through the facade, rows
+  within and past capacity, equal to the CPU; StreamCodec over RS (32 MiB,
+  4 bad bytes a block) and LDPC (4 MiB), round-tripping through the RS
+  and BP kernels; the shim at B = 1 (RS plain, erasure and external
+  syndrome, LDPC soft, BCH), equal to CPU handles, its kernels' counts
+  moving.
 
 Every kernel's entry in the `kernels` line carries its bound: the larger
 of its bytes over 3.35 TB/s and its integer operations over 16.7 T/s
@@ -671,6 +681,269 @@ def waterfall_phase(common):
           f"waterfall: FER at 5 dB {fer_at_top}")
 
 
+# ------------------------------------------- BCH, streaming and the shim
+
+BCH_CONFIGS = {"BCH(31,21)": ((5, 0x25, 2), BATCH), "BCH(63,51)": ((6, 0x43, 2), BATCH),
+               "BCH(4095,4071)": ((12, 0x1053, 2), 2048)}
+
+
+def bch_rows(rng, c, B):
+    """Codeword bits [B, n] of random data through c.encode_bits, with 0..t
+    bit errors in the first half of the rows, t+1..t+3 in most of the
+    rest and random words in the last sixteenth; distinct error positions
+    a row, made in one pass.  Returns (received bits, sent bits)."""
+    n, t = c.n, c.t
+    sent = c.encode_bits(rng.integers(0, 2, (B, c.data_length)).astype(np.int32)).cpu().numpy()
+    nerr = np.where(np.arange(B) < B // 2, np.arange(B) % (t + 1), t + 1 + np.arange(B) % 3)
+    pos = np.argsort(rng.random((B, n)), axis=1)[:, : t + 3]
+    flips = np.zeros((B, n), np.int32)
+    np.put_along_axis(flips, pos, (np.arange(t + 3)[None, :] < nerr[:, None]).astype(np.int32),
+                      axis=1)
+    rx = sent ^ flips
+    junk = B // 16
+    rx[-junk:] = rng.integers(0, 2, (junk, n))
+    return rx, sent
+
+
+def launches_per_call(fn, *args):
+    """Device kernels one call of fn launches, from a torch.profiler trace
+    (utils.profiling.trace; the trace goes to build/traces): (kernels,
+    memory copies and sets, their device us in all, the five kernels of
+    most device time with their us, names cut at 80 characters)."""
+    import torch
+    from libpoporon_tpu_torch.utils.profiling import trace
+    fn(*args)
+    torch.cuda.synchronize()
+    with trace(str(Path("build") / "traces")) as prof:
+        fn(*args)
+    dev = [e for e in prof.events() if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    check(dev, "the profiler saw no device event")
+    copies = [e for e in dev if e.name.startswith(("Memcpy", "Memset"))]
+    by_name = {}
+    for e in dev:
+        if e not in copies:
+            by_name[e.name[:80]] = by_name.get(e.name[:80], 0) + e.device_time_total
+    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:5])
+    return len(dev) - len(copies), len(copies), sum(e.device_time_total for e in dev), top
+
+
+def bch_phase(pt, dev, rng, common):
+    """Phase 10: BCH(15,5) (`bch_config_default()`) at B = BATCH from random
+    15-bit words (bench.py:202-224): decode_bits, encode_bits, the facade's
+    byte round trip and the word API's decode on the card, each equal to
+    the same call on the CPU, then timed, with the device kernels of one
+    decode_bits call from a profiler trace and its bytes bound; then
+    BCH(31,21), BCH(63,51) and BCH(4095,4071) through the facade, rows
+    within and past capacity and random words, equal to the CPU."""
+    import torch
+    from libpoporon_tpu_torch.models.bch import BCHCodec
+    from libpoporon_tpu_torch.utils.profiling import time_ms
+
+    cases = 0
+
+    def same(got, want, what):
+        nonlocal cases
+        torch.cuda.synchronize()
+        err = max_abs_err([g.cpu() for g in got], list(want))
+        cases += 1
+        check(err == 0 and all(g.shape == w.shape for g, w in zip(got, want)),
+              f"BCH {what}: the card != the CPU (max abs err {err})")
+
+    cfg = pt.bch_config_default()
+    codec, ref = pt.create(cfg, device="cuda"), pt.create(cfg, device="cpu")
+    c, cc = codec._bch, ref._bch
+    words = rng.integers(0, 1 << c.n, BATCH).astype(np.int32)
+    rx = ((words[:, None] >> np.arange(c.n)) & 1).astype(np.int32)
+    rx_dev = torch.as_tensor(rx, device=dev)
+    dbits = torch.as_tensor(rng.integers(0, 2, (BATCH, c.data_length)).astype(np.int32),
+                            device=dev)
+    data = torch.as_tensor(rng.integers(0, 1 << c.data_length, (BATCH, 1)).astype(np.uint8),
+                           device=dev)
+    words_dev = torch.as_tensor(words, device=dev)
+
+    def round_trip(d):
+        par = codec.encode(d).parity
+        bad = d ^ torch.where(torch.arange(d.shape[0], device=d.device)[:, None] % 2 == 0, 1, 4)
+        return codec.decode(bad.to(torch.uint8), par)
+
+    got = c.decode_bits(rx_dev)
+    same(got, cc.decode_bits(rx), "15 decode_bits")
+    ok_share = float(got[0].double().mean())
+    same([c.encode_bits(dbits)], [cc.encode_bits(dbits.cpu())], "15 encode_bits")
+    res = round_trip(data)
+    par_cpu = ref.encode(data.cpu()).parity
+    bad_cpu = (data.cpu() ^ torch.where(torch.arange(BATCH)[:, None] % 2 == 0, 1, 4)).to(torch.uint8)
+    same(list(res) + [codec.last_num_errors], list(ref.decode(bad_cpu, par_cpu))
+         + [ref.last_num_errors], "15 facade round trip")
+    check(bool(res.ok.all()) and torch.equal(res.data, data), "BCH(15,5) round trip: a row lost")
+    same(c.decode(words_dev), cc.decode(words), "15 word decode")
+
+    t = {"decode_bits": time_ms(c.decode_bits, rx_dev),
+         "encode_bits": time_ms(c.encode_bits, dbits),
+         "facade_round_trip": time_ms(round_trip, data),
+         "word_decode": time_ms(c.decode, words_dev)}
+    kernels, copies, device_us, top = launches_per_call(c.decode_bits, rx_dev)
+    # the function's bytes: int32 bits in; ok, int32 bits and int32 counts out
+    b = bound(BATCH * (4 * c.n + 1 + 4 * c.n + 4), 0)
+    log({"bench": "bch15_decode_bits", "config": repr(cfg), "ms": t["decode_bits"],
+         "codewords_per_s": BATCH / t["decode_bits"] * 1e3, "ok_share_random_words": ok_share,
+         "device_kernels_per_call": kernels, "copies_per_call": copies,
+         "device_us_in_trace": device_us, "top_kernels_us": top, **b,
+         "share_of_bound": b["bound_ms"] / t["decode_bits"], **common})
+    for name in ("encode_bits", "facade_round_trip", "word_decode"):
+        log({"bench": f"bch15_{name}", "ms": t[name], "codewords_per_s": BATCH / t[name] * 1e3,
+             **common})
+
+    for name, (params, B) in BCH_CONFIGS.items():
+        cfg = pt.BchConfig(*params)
+        codec, ref = pt.create(cfg, device="cuda"), pt.create(cfg, device="cpu")
+        cpu = BCHCodec(cfg, "cpu")
+        rx, sent = bch_rows(rng, cpu, B)
+        d = cpu.unpack_data(torch.as_tensor(rx[:, cpu.parity_bits:]))
+        p = cpu.unpack_parity(torch.as_tensor(rx[:, : cpu.parity_bits]))
+        t0 = time.perf_counter()
+        res = codec.decode(d.to(dev), p.to(dev))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        same(list(res) + [codec.last_num_errors], list(ref.decode(d, p)) + [ref.last_num_errors],
+             f"{name} facade decode B={B}")
+        within = np.arange(B) < B // 2
+        want = cpu.unpack_data(torch.as_tensor(sent[:, cpu.parity_bits:])).numpy()
+        check(bool(res.ok.cpu().numpy()[within].all())
+              and np.array_equal(res.data.cpu().numpy()[within], want[within]),
+              f"{name}: a row within capacity not corrected")
+        ms = time_ms(codec.decode, d.to(dev), p.to(dev))
+        log({"bench": "bch_facade_decode", "config": name, "batch": B, "ms": ms,
+             "first_call_s": seconds, "codewords_per_s": B / ms * 1e3,
+             "ok_share": float(res.ok.double().mean()), "card": common["card"]})
+    log({"phase": "bch", "cases": cases, "max_abs_err": 0})
+    return t["decode_bits"], kernels
+
+
+def stream_phase(pt, dev, rng, common):
+    """Phase 11: StreamCodec over RS(255,223), 32 MiB with 4 corrupted
+    bytes in every block, and over LDPC 128 B rate 1/2, 4 MiB as sent (a
+    few blocks in a thousand of this code fail to converge from even one
+    flipped bit, in the JAX package as here), each round-tripping exactly
+    through the RS and BP kernels; a 100 KB payload gives the same blob
+    and result on the card as on the CPU."""
+    import torch
+    from libpoporon_tpu_torch.stream import StreamCodec
+
+    out = {}
+    for name, cfg, size in (("rs", pt.rs_config_default(), 32 << 20),
+                            ("ldpc", pt.LdpcConfig(128, pt.LdpcRate.RATE_1_2), 4 << 20)):
+        codec = pt.create(cfg, device="cuda")
+        kern = codec._rs.kernel if name == "rs" else codec._ldpc.kernel
+        sc = StreamCodec(codec)
+        payload = rng.integers(0, 256, size, dtype=np.uint8).tobytes()
+        kern.launches = 0
+        t0 = time.perf_counter()
+        blob = sc.encode_stream(payload)
+        enc_s = time.perf_counter() - t0
+        arr = np.frombuffer(blob, np.uint8).reshape(-1, sc.block_size).copy()
+        nb = arr.shape[0]
+        rows = np.arange(nb)[:, None]
+        if name == "rs":      # 4 distinct bytes a block
+            pos = (rng.integers(0, 255, nb)[:, None] + np.array([0, 61, 127, 190])) % 255
+            arr[rows, pos] ^= rng.integers(1, 256, (nb, 4), dtype=np.uint8)
+        t0 = time.perf_counter()
+        got, stats = sc.decode_stream(arr.tobytes())
+        dec_s = time.perf_counter() - t0
+        check(got == payload and stats["blocks_failed"] == 0,
+              f"stream {name}: payload not recovered ({stats})")
+        launches = {"launches": kern.launches}
+        if name == "rs":
+            launches["syndrome_launches"] = kern.syndrome_launches
+        check(launches["launches"] >= 1, f"stream {name}: no kernel launched")
+        small = payload[: 100_000]
+        ref = StreamCodec(pt.create(cfg, device="cpu"))
+        check(sc.encode_stream(small) == ref.encode_stream(small), f"stream {name}: blob != CPU's")
+        check(sc.decode_stream(sc.encode_stream(small)) == ref.decode_stream(ref.encode_stream(small)),
+              f"stream {name}: decode != CPU's")
+        out[name] = {"payload_bytes": size, "blocks": nb, "encode_s": enc_s, "decode_s": dec_s,
+                     "encode_mb_per_s": size / enc_s / 1e6, "decode_mb_per_s": size / dec_s / 1e6,
+                     "corrected": stats["corrected"], **launches}
+        log({"phase": "stream", "codec": name, **out[name], "max_abs_err": 0,
+             "card": common["card"]})
+    return out
+
+
+def shim_phase(pt, dev, rng, common):
+    """Phase 12: the C-shaped shim at B = 1 on the card (RS plain, erasure
+    and external syndrome, LDPC default with soft LLRs, BCH default), each
+    call's return and buffers equal to the same calls on a CPU handle, and
+    the RS and BP kernels' launch counts moving; the first decode call and
+    the mean of 20 more timed on the host clock (each returns its result
+    to NumPy, so each waits for the card)."""
+    import torch
+    from libpoporon_tpu_torch import compat as pp
+
+    eras = [3, 10, 200]
+
+    def rs_cfg(**kw):
+        return pp.poporon_rs_config_create(8, 0x11D, 1, 1, 32, **kw)
+
+    data = rng.integers(0, 256, 223, dtype=np.uint8)
+    parity = np.zeros(32, np.uint8)
+    pp.poporon_encode(pp.poporon_create(rs_cfg(), device="cpu"), data.copy(), 223, parity)
+    bad = data.copy()
+    bad[eras] ^= 0x5A
+    rs_ref = pt.create(pt.rs_config_default(), device="cpu")._rs
+    syn = rs_ref.exp2log[rs_ref._syndrome(torch.as_tensor(bad[None]),
+                                          torch.as_tensor(parity[None])).long()][0]
+    ldpc_data = rng.integers(0, 256, 128, dtype=np.uint8)
+    ldpc_par = np.zeros(128, np.uint8)
+    enc_data = ldpc_data.copy()
+    pp.poporon_encode(pp.poporon_create(pp.poporon_config_ldpc_default(128, 1), device="cpu"),
+                      enc_data, 128, ldpc_par)
+    sign = np.unpackbits(np.concatenate([enc_data, ldpc_par]))
+    llr = np.clip(np.round(np.where(sign == 1, -60, 60) + rng.normal(0, 25, 2048)), -127, 127)
+    bch_data = np.array([21], np.uint8)
+    bch_par = np.zeros(2, np.uint8)
+    pp.poporon_encode(pp.poporon_create(pp.poporon_config_bch_default(), device="cpu"),
+                      bch_data.copy(), 1, bch_par)
+    cases = {
+        "rs_plain": (rs_cfg(), bad, parity, "rs"),
+        "rs_erasure": (rs_cfg(erasure=pp.poporon_erasure_create_from_positions(32, eras)),
+                       bad, parity, "rs"),
+        "rs_syndrome": (rs_cfg(syndrome=syn.numpy()), bad, parity, "rs"),
+        "ldpc_soft": (pp.poporon_ldpc_config_create(128, 1, 1, 3, True, True, True, 0, 0, 0,
+                                                    llr.astype(np.int8), 2048, 0),
+                      enc_data, ldpc_par, "ldpc"),
+        "bch": (pp.poporon_config_bch_default(), bch_data ^ np.uint8(5), bch_par, None),
+    }
+    for name, (cfg, d, p, kind) in cases.items():
+        results = []
+        for device in ("cuda", "cpu"):
+            h = pp.poporon_create(cfg, device=device)
+            check(h is not None, f"shim {name}: poporon_create gave NULL on {device}")
+            kern = getattr(h.codec, f"_{kind}").kernel if kind else None
+            if kern is not None:
+                kern.launches = 0
+            bd, bp = d.copy(), p.copy()
+            enc_par = np.zeros_like(p)
+            enc_ok = pp.poporon_encode(h, d.copy(), len(d), enc_par)
+            t0 = time.perf_counter()
+            r = pp.poporon_decode(h, bd, len(d), bp)
+            ms = (time.perf_counter() - t0) * 1e3
+            results.append((enc_ok, enc_par.tolist(), r, bd.tolist(), bp.tolist(),
+                            pp.poporon_get_iterations_used(h)))
+            if device == "cuda":
+                launches = None if kern is None else kern.launches
+                check(kind is None or launches >= 1, f"shim {name}: no kernel launched")
+                first_ms = ms
+                t0 = time.perf_counter()
+                for _ in range(20):
+                    pp.poporon_decode(h, d.copy(), len(d), p.copy())
+                steady_ms = (time.perf_counter() - t0) / 20 * 1e3
+        check(results[0] == results[1], f"shim {name}: the card's results != the CPU's")
+        check(results[0][2][0], f"shim {name}: decode failed {results[0][2]}")
+        log({"phase": "shim", "case": name, "result": list(results[0][2]), "launches": launches,
+             "first_decode_ms": first_ms, "decode_ms": steady_ms, "max_abs_err": 0,
+             "card": common["card"]})
+
+
 def main() -> int:
     import torch
 
@@ -890,6 +1163,13 @@ def main() -> int:
     # ---- phases 8 and 9: the measurement path (DMA probes, waterfall)
     probe_entries = probe_phase(common)
     waterfall_phase(common)
+
+    # ---- phases 10 to 12: BCH, streaming and the C-shaped shim
+    t0 = time.perf_counter()
+    bch_phase(pt, dev, rng, common)
+    stream_phase(pt, dev, rng, common)
+    shim_phase(pt, dev, rng, common)
+    log({"phase": "bch_stream_shim", "seconds": time.perf_counter() - t0})
 
     syn_entry.update(launches=syn_launches, max_abs_err=syn_err)
     print(json.dumps({"kernels": [rs_entry, syn_entry, ldpc_entry, *probe_entries]}),

@@ -9,6 +9,10 @@ names.  It imports torch and never jax.  So far it carries:
 - LDPC: the seeded parity-check structure and interleavers, encode, and
   min-sum BP decode, hard and soft, whose BP runs through a hand-written
   CUDA kernel (csrc/ldpc_bp.cu) on CUDA tensors;
+- BCH: binary BCH for m in [3, 16] (models/bch.py), bit, word and byte
+  APIs, in plain PyTorch ops (the JAX package has no BCH kernel);
+- the C-shaped shim (compat.py: the `poporon_*` functions over NumPy
+  buffers) and byte-stream framing (stream.py: `StreamCodec`);
 - measurement: the DMA probes as CUDA bulk-copy kernels
   (csrc/probe_dma.cu, benchmarks/probe_dma.py), the BER waterfall
   (benchmarks/waterfall.py), fault injection and card-only timing
@@ -24,10 +28,13 @@ names.  It imports torch and never jax.  So far it carries:
     enc  = ldpc.encode(info)                 # interleaved data and parity
     res  = ldpc.decode(enc.data, enc.parity, soft_llr=llr)   # llr: int8 [B, 2048]
 
+    bch = pt.create(pt.bch_config_default(), device="cuda")  # BCH(15,5)
+    res = bch.decode(data, bch.encode(data).parity)          # data: uint8 [B, 1]
+
 `create` puts the codec on the card ("cuda") unless given another device;
 without a card that default raises, and the CPU runs only where the
 caller asks for it (`device="cpu"`, as the tests do).  Inputs are moved
-to the codec's device.  BCH configs raise NotImplementedError.
+to the codec's device.
 """
 
 from .config import (

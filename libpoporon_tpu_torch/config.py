@@ -10,10 +10,8 @@ dataclasses and presets, with the reference's defaults:
 - LDPC burst-resistant: column_weight=7 (poporon.c:291-294)
 - BCH default:  (4, 0x13, t=3) -> BCH(15,5) (poporon.c:296-299)
 
-RS and LDPC have codecs in this package so far; the BCH config is
-carried over as data so that code written against the JAX package keeps
-its imports.  LdpcConfig's `use_pallas` (a TPU knob) is `use_kernel`
-here, as in RSConfig.
+LdpcConfig's `use_pallas` (a TPU knob) is `use_kernel` here, as in
+RSConfig; BchConfig has no such knob (BCH has no kernel).
 """
 
 from __future__ import annotations

@@ -254,6 +254,9 @@ class RSCodec:
         self.k = self.fs - self.num_roots  # max data symbols
         if self.k <= 0:
             raise GFError("num_roots >= field size")
+        if self.num_roots < 1:
+            # the JAX package fails here with an IndexError in its builders
+            raise GFError("num_roots must be >= 1")
         self.prim_inv = _prim_inverse(self.prim, self.fs)
 
         if arrays is None:
@@ -542,6 +545,10 @@ class RSCodec:
             out = (torch.zeros(B, dtype=torch.bool, device=self.device),
                    data, parity, z)
             return tuple(o[0] for o in out) if squeeze else out
+        if parity.shape[-1] != self.num_roots:
+            # the C reads num_roots parity bytes; the JAX package raises
+            # here too, where the widths fail to meet in its matmuls
+            raise ValueError(f"parity must be {self.num_roots} bytes, got {parity.shape[-1]}")
 
         kern = self.kernel
         if ext_syndrome is not None:

@@ -67,11 +67,14 @@ def test_getters_and_erasure_object_match_jax():
 
 
 def test_ldpc_and_bch_not_ported_yet():
-    """BCH is not ported yet and raises; LDPC is, and creates a codec."""
+    """LDPC and BCH configs (BCH since the slice that ported it, under this
+    test's old name) create codecs on the CPU with the JAX facade's sizes;
+    an unknown config raises TypeError."""
     ldpc = pt.create(pt.ldpc_config_default(128, pt.LdpcRate.RATE_1_2), device="cpu")
     assert ldpc.fec_type == pt.FecType.LDPC and ldpc.device == torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.create(pt.bch_config_default(), device="cpu")
+    bch, ref = pt.create(pt.bch_config_default(), device="cpu"), jpp.create(jpp.bch_config_default())
+    assert bch.fec_type == pt.FecType.BCH and bch.device == torch.device("cpu")
+    assert (bch.info_size, bch.parity_size) == (ref.info_size, ref.parity_size) == (1, 2)
     with pytest.raises(TypeError):
         pt.create(object(), device="cpu")
 
@@ -97,7 +100,9 @@ def test_import_leaves_jax_out():
     code = ("import sys, libpoporon_tpu_torch, "
             "libpoporon_tpu_torch.benchmarks.probe_dma, "
             "libpoporon_tpu_torch.benchmarks.waterfall, "
-            "libpoporon_tpu_torch.utils.faults, libpoporon_tpu_torch.utils.profiling; "
+            "libpoporon_tpu_torch.utils.faults, libpoporon_tpu_torch.utils.profiling, "
+            "libpoporon_tpu_torch.compat, libpoporon_tpu_torch.stream, "
+            "libpoporon_tpu_torch.models.bch; "
             "bad = [m for m in ('jax', 'libpoporon_tpu') if m in sys.modules]; "
             "sys.exit(f'imported {bad}' if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
