@@ -42,6 +42,13 @@ each slice of the port:
   and BP kernels; the shim at B = 1 (RS plain, erasure and external
   syndrome, LDPC soft, BCH), equal to CPU handles, its kernels' counts
   moving.
+- parallel/: ShardedCodec over every visible card at B = 131072 and over
+  two entries of one card at B = 131071 (RS 2 errors, LDPC hard and
+  soft), each output equal to the facade's, the kernels launched once a
+  shard (RS twice), both timed; ldpc_decode_step's sums against the
+  facade's; the statistics on card tensors against the CPU, locally and
+  in a one-rank NCCL group; the scaling benchmark's row; the current
+  CUDA device as it was.
 
 Every kernel's entry in the `kernels` line carries its bound: the larger
 of its bytes over 3.35 TB/s and its integer operations over 16.7 T/s
@@ -58,6 +65,10 @@ imports jax.
 Output: `# {json}` lines with the timings (card name and power limit in
 each), then one line `{"kernels": [...]}`, and as the last line
 `{"ok": true, "device": {...}}`.
+
+`python3 chip_smoke.py --parallel-only` builds the kernels and runs the
+RS and LDPC main paths, then phase 13 (parallel/) alone over every
+visible card: the multi-card check, for a machine with several cards.
 """
 
 from __future__ import annotations
@@ -944,7 +955,148 @@ def shim_phase(pt, dev, rng, common):
              "card": common["card"]})
 
 
-def main() -> int:
+# ------------------------------------------------------- parallel/ (phase 13)
+
+PAR_ODD = BATCH - 1     # the two-entry mesh's batch: one pad row, then split
+
+
+def shard_kernels(sc):
+    """The RS or BP kernel wrappers of a ShardedCodec's device codecs."""
+    return [c._rs.kernel if hasattr(c, "_rs") else c._ldpc.kernel for c in sc.codecs.values()]
+
+
+def kernel_counts(sc):
+    """(kernel launches, RS syndrome launches) summed over the shards' codecs."""
+    ks = shard_kernels(sc)
+    return sum(k.launches for k in ks), sum(getattr(k, "syndrome_launches", 0) for k in ks)
+
+
+def zero_counts(sc):
+    for k in shard_kernels(sc):
+        k.launches = 0
+        if hasattr(k, "syndrome_launches"):
+            k.syndrome_launches = 0
+
+
+def parallel_phase(pt, rs_case, ldpc, common):
+    """Phase 13: parallel/.  ShardedCodec over every visible card at
+    B = BATCH and over two entries of one card at B = BATCH - 1 (a pad
+    row, a split, a join), on the RS 2-error and LDPC hard and soft inputs
+    of phases 2 and 5: each output equal to the facade's on the same
+    inputs, the kernels launched per shard, both timed in turns.  Then
+    ldpc_decode_step's sums against the facade, the statistics on card
+    tensors against the CPU, locally and inside a one-rank NCCL group
+    that the phase opens and closes, and the scaling benchmark on the
+    visible cards.  The current CUDA device is the same after it."""
+    import contextlib
+    import datetime
+    import io
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from libpoporon_tpu_torch.benchmarks import scaling
+    from libpoporon_tpu_torch.parallel import (ShardedCodec, batch_mesh, ber_stats,
+                                               iteration_histogram)
+    from libpoporon_tpu_torch.utils.bits import unpack
+    from libpoporon_tpu_torch.utils.profiling import time_ms
+
+    t0 = time.perf_counter()
+    current = torch.cuda.current_device()
+    meshes = {"cards": (batch_mesh(), BATCH), "one_card_x2": (batch_mesh(["cuda:0"] * 2), PAR_ODD)}
+    x = ldpc["x"]
+    cases = [("rs_2err", rs_case["codec"], rs_case["args"], {}, 2),
+             ("ldpc_hard", ldpc["hard"], (x[:, :128], x[:, 128:]), {}, 1),
+             ("ldpc_soft", ldpc["soft"], (ldpc["soft_data"], ldpc["soft_parity"]),
+              {"soft_llr": ldpc["llr"]}, 1)]
+    for mesh_name, (mesh, B) in meshes.items():
+        n = len(mesh.devices)
+        for name, codec, args, kw, per_shard in cases:
+            args = tuple(a[:B] for a in args)
+            kw = {k: v[:B] for k, v in kw.items()}
+            sc = ShardedCodec(codec, mesh)
+            want = codec.decode(*args, **kw)
+            zero_counts(sc)
+            got = sc.decode(*args, **kw)
+            torch.cuda.synchronize()
+            launches, syn = kernel_counts(sc)
+            check(launches == per_shard * n and (per_shard == 1 or syn == n),
+                  f"parallel {name} on {mesh_name}: {launches} launches ({syn} syndrome) "
+                  f"for {n} shards, {per_shard} a shard")
+            err = max_abs_err(got, want)
+            check(err == 0 and all(a.shape == b.shape and a.device == b.device
+                                   for a, b in zip(got, want)),
+                  f"parallel {name} on {mesh_name}: sharded != facade (max abs err {err})")
+
+            def facade_fn():
+                return codec.decode(*args, **kw)
+
+            def sharded_fn():
+                return sc.decode(*args, **kw)
+
+            devs = list(dict.fromkeys(mesh.devices))
+            t_f = [time_ms(facade_fn, devices=devs)]
+            t_s = [time_ms(sharded_fn, devices=devs), time_ms(sharded_fn, devices=devs)]
+            t_f.append(time_ms(facade_fn, devices=devs))
+            ms, facade_ms = sum(t_s) / 2, sum(t_f) / 2
+            log({**common, "phase": "parallel", "case": name, "mesh": mesh_name,
+                 "shards": n, "batch": B, "launches": launches, "syndrome_launches": syn,
+                 "max_abs_err": err, "sharded_ms": ms, "facade_ms": facade_ms,
+                 "sharded_runs_ms": t_s, "facade_runs_ms": t_f,
+                 "sharded_over_facade": ms / facade_ms, "split_join_ms": ms - facade_ms})
+
+    # ldpc_decode_step: its sums are the facade's (plus the zero pad rows,
+    # each a codeword converging at iteration 0, as the JAX psum counts them)
+    hard = ldpc["hard"]
+    word = torch.cat(list(hard.encode(ldpc["info"])), dim=1)
+    for mesh_name, (mesh, B) in meshes.items():
+        want = hard.decode(x[:B, :128], x[:B, 128:])
+        ok, out, iters, st = ShardedCodec(hard, mesh).ldpc_decode_step(x[:B])
+        pads = (-B) % len(mesh.devices)
+        check(torch.equal(ok, want.ok) and torch.equal(iters, want.corrected),
+              f"ldpc_decode_step on {mesh_name}: ok or iterations != the facade's")
+        check(st == {"converged": int(want.ok.sum()) + pads,
+                     "iterations_total": int(want.corrected.sum())},
+              f"ldpc_decode_step on {mesh_name}: stats {st} != the facade's sums")
+        log({"phase": "parallel_step", "mesh": mesh_name, "batch": B, **st, "pads": pads})
+
+    # statistics on card tensors: local, then over a one-rank NCCL group
+    ok, out, iters, _ = ShardedCodec(hard, meshes["cards"][0]).ldpc_decode_step(x)
+    ref_bits, out_bits = unpack(word), unpack(out)
+    ber_cpu = ber_stats(ref_bits.cpu(), out_bits.cpu(), group=None)
+    hist_cpu = iteration_histogram(iters.cpu(), LDPC_MI, group=None)
+
+    def same_stats(ber, hist, what):
+        check(all(torch.equal(ber[k].cpu(), ber_cpu[k]) for k in ber_cpu)
+              and torch.equal(hist.cpu(), hist_cpu), f"statistics {what} != on the CPU")
+
+    same_stats(ber_stats(ref_bits, out_bits, group=None),
+               iteration_histogram(iters, LDPC_MI, group=None), "on the card, local")
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/rdzv", world_size=1,
+                                rank=0, timeout=datetime.timedelta(seconds=60))
+        try:
+            same_stats(ber_stats(ref_bits, out_bits), iteration_histogram(iters, LDPC_MI),
+                       "over a one-rank NCCL group")
+            _, _, _, st = ShardedCodec(hard, meshes["cards"][0],
+                                       group=dist.group.WORLD).ldpc_decode_step(x)
+            check(st["converged"] == int(ok.sum()), "ldpc_decode_step over NCCL")
+        finally:
+            dist.destroy_process_group()
+    log({"phase": "parallel_stats", "errors": int(ber_cpu["errors"]),
+         "total": int(ber_cpu["total"]), "ber": float(ber_cpu["ber"]),
+         "histogram_nonzero": {i: int(v) for i, v in enumerate(hist_cpu.tolist()) if v},
+         "nccl_one_rank": "equal", "max_abs_err": 0})
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = scaling.main([])
+    log({"phase": "scaling", **res})
+    check(torch.cuda.current_device() == current,
+          f"the current CUDA device moved from {current} to {torch.cuda.current_device()}")
+    log({"phase": "parallel", "seconds": time.perf_counter() - t0, "card": common["card"]})
+
+
+def main(argv=None) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -956,6 +1108,7 @@ def main() -> int:
     from libpoporon_tpu_torch.utils import build
     from libpoporon_tpu_torch.utils.profiling import card_info, time_ms
 
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     card = card_info()
@@ -1004,6 +1157,15 @@ def main() -> int:
     log({"phase": "main_path", "batch": BATCH, "seconds_with_transfers": main_s,
          "launches": launches, "syndrome_launches": syn_launches, "all_ok": True,
          "corrected": 2})
+    if "--parallel-only" in (sys.argv[1:] if argv is None else argv):
+        # phase 13 alone on the inputs of phases 2 and 5, for a machine
+        # with several cards
+        common = {"batch": BATCH, "card": card, "cards": torch.cuda.device_count(),
+                  "warmup": WARMUP, "iters": ITERS}
+        parallel_phase(pt, {"codec": codec, "args": (torch.as_tensor(bad, device=dev),
+                                                     enc.parity)},
+                       ldpc_main_path(pt, dev, rng), common)
+        return 0
 
     # ---- phase 3: kernels against their plain versions, on the card
     max_err = syn_err = 0
@@ -1090,6 +1252,21 @@ def main() -> int:
                 compare(f"{name} erasure E={E}+{extra} B={B}", rs_, "erasure", be, p, pos, cnt)
     log({"phase": "kernel_vs_plain", "cases": cases, "max_abs_err": max_err,
          "syndrome_cases": syn_cases, "syndrome_max_abs_err": syn_err})
+    # ROADMAP F8: 0x11B (x of order 51) passes GF's check, but its log
+    # table repeats; the gate sends it to the plain version, equal to the CPU
+    cfg = pt.RSConfig(generator_polynomial=0x11B)
+    rs_ = RSCodec(cfg, dev)
+    check(rs_.kernel is None, "0x11B: the RS kernel's gate admits a non-primitive polynomial")
+    d = rng.integers(0, 256, (1000, rs_.k), dtype=np.uint8)
+    p = rs_.encode(d).cpu().numpy()
+    bd, bp = corrupt(rng, d, p, rng.integers(0, 18, 1000))
+    be, pos, cnt = erasure_case(rng, d, 8, 2)
+    ref = RSCodec(cfg, "cpu")
+    for tag, args, kw in (("plain", (bd, bp), {}), ("erasure", (be, p), {"erasures": (pos, cnt)})):
+        err = max_abs_err([t.cpu() for t in rs_.decode(*args, **kw)], ref.decode(*args, **kw))
+        check(err == 0, f"0x11B {tag}: the card's plain version != the CPU's (max abs err {err})")
+    log({"phase": "kernel_vs_plain", "config": "poly11b", "kernel": None,
+         "card_plain_vs_cpu_max_abs_err": 0})
 
     # ---- phase 4: timing at B = 131072 on the card
     common = {"batch": BATCH, "card": card, "warmup": WARMUP, "iters": ITERS}
@@ -1158,7 +1335,6 @@ def main() -> int:
     ldpc_entry["library_ms"] = None
     bp_err = ldpc_bp_entry_timing(dev, main, common)
     ldpc_entry["max_abs_err"] = max(max_err, bp_err, ldpc_entry["max_abs_err"])
-    del main
 
     # ---- phases 8 and 9: the measurement path (DMA probes, waterfall)
     probe_entries = probe_phase(common)
@@ -1171,7 +1347,12 @@ def main() -> int:
     shim_phase(pt, dev, rng, common)
     log({"phase": "bch_stream_shim", "seconds": time.perf_counter() - t0})
 
+    # ---- phase 13: parallel/ (sharded codecs, statistics, scaling)
+    parallel_phase(pt, {"codec": codec, "args": (d_dev, p_dev)}, main, common)
+    del main
+
     syn_entry.update(launches=syn_launches, max_abs_err=syn_err)
+    log({"phase": "total", "seconds": time.perf_counter() - t_start, "card": card})
     print(json.dumps({"kernels": [rs_entry, syn_entry, ldpc_entry, *probe_entries]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {

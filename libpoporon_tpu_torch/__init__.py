@@ -16,7 +16,12 @@ names.  It imports torch and never jax.  So far it carries:
 - measurement: the DMA probes as CUDA bulk-copy kernels
   (csrc/probe_dma.cu, benchmarks/probe_dma.py), the BER waterfall
   (benchmarks/waterfall.py), fault injection and card-only timing
-  (utils/faults.py, utils/profiling.py).
+  (utils/faults.py, utils/profiling.py), and weak scaling over a mesh
+  (benchmarks/scaling.py);
+- parallel: the codeword batch split over a mesh of devices
+  (parallel.ShardedCodec over parallel.batch_mesh, one codec a device),
+  and BER and iteration statistics summed across processes through
+  torch.distributed (parallel.ber_stats, parallel.iteration_histogram).
 
     import libpoporon_tpu_torch as pt
 

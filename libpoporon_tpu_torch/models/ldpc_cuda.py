@@ -212,9 +212,10 @@ class BPCudaKernel:
         key = (mode, dev.index or 0)
         if key not in self._blocks_per_sm:
             f = self.form
-            n = build.load_library().pp_ldpc_bp_blocks_per_sm(
-                mode, self.V, self.P, self.E, self.runs, self.dv, self.has_src,
-                int(f["form"] == "shared"), f["groups"], f["threads"], dev.index or 0)
+            with torch.cuda.device(dev):   # the C side sets the device
+                n = build.load_library().pp_ldpc_bp_blocks_per_sm(
+                    mode, self.V, self.P, self.E, self.runs, self.dv, self.has_src,
+                    int(f["form"] == "shared"), f["groups"], f["threads"], dev.index or 0)
             if n < 1:
                 raise RuntimeError(f"ldpc_bp kernel: no block fits an SM (CUDA error {-n})")
             self._blocks_per_sm[key] = n
@@ -241,11 +242,12 @@ class BPCudaKernel:
         def ptr(t):
             return None if t is None else t.data_ptr()
 
-        rc = build.load_library().pp_ldpc_bp(
-            mode, ptr(x), ptr(chan), ptr(graph), ptr(out), ptr(ok), ptr(iters), ptr(counter),
-            B, self.V, self.P, self.E, self.runs, self.dv, self.has_src, int(mi),
-            int(f["form"] == "shared"), f["groups"], f["threads"], grid, dev.index or 0,
-            torch.cuda.current_stream(dev).cuda_stream)
+        with torch.cuda.device(dev):
+            rc = build.load_library().pp_ldpc_bp(
+                mode, ptr(x), ptr(chan), ptr(graph), ptr(out), ptr(ok), ptr(iters),
+                ptr(counter), B, self.V, self.P, self.E, self.runs, self.dv, self.has_src,
+                int(mi), int(f["form"] == "shared"), f["groups"], f["threads"], grid,
+                dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"ldpc_bp kernel launch failed: CUDA error {rc}")
         self.launches += 1

@@ -62,11 +62,16 @@ class RSCudaDecoder:
     @staticmethod
     def supports(rs) -> bool:
         """Config gate, as rs_pallas.py's: m = 8, nr <= 64 and
-        (fcr + nr) * prim < 2^15."""
+        (fcr + nr) * prim < 2^15; and, past it, a primitive polynomial.
+        The kernel's Chien steps logs (log el_j + j) and so needs a log
+        table that names every nonzero element once; a polynomial whose
+        powers of x miss elements (0x11B) runs the plain version, which
+        the kernel disagreed with there (ROADMAP.md Queue 3, F8)."""
         return (
             rs.m == 8
             and rs.num_roots <= MAX_ROOTS
             and (rs.fcr + rs.num_roots) * rs.prim < (1 << 15)
+            and len(set(rs.gf.log2exp[: rs.fs].tolist())) == rs.fs
         )
 
     def __init__(self, rs):
@@ -134,10 +139,11 @@ class RSCudaDecoder:
         s_log = torch.empty(B, rs.num_roots, dtype=torch.int32, device=data.device)
         if B == 0:
             return s_log
-        rc = build.load_library().pp_rs_syndrome(
-            data.data_ptr(), parity.data_ptr(), self.columns.data_ptr(),
-            self.tables.data_ptr(), s_log.data_ptr(), B, size, rs.num_roots,
-            self.columns.shape[2], *self._stream(data.device))
+        with torch.cuda.device(data.device):   # the launcher sets the device
+            rc = build.load_library().pp_rs_syndrome(
+                data.data_ptr(), parity.data_ptr(), self.columns.data_ptr(),
+                self.tables.data_ptr(), s_log.data_ptr(), B, size, rs.num_roots,
+                self.columns.shape[2], *self._stream(data.device))
         if rc != 0:
             raise RuntimeError(f"rs_syndrome kernel launch failed: CUDA error {rc}")
         self.launches += 1
@@ -175,11 +181,12 @@ class RSCudaDecoder:
         def ptr(t):
             return None if t is None else t.data_ptr()
 
-        rc = build.load_library().pp_rs_decode(
-            int(mode == MODE_ERASURE), ptr(data), ptr(parity), ptr(eras_pos),
-            ptr(eras_count), eras_width, ptr(s_log), ptr(self.tables), ptr(data_out),
-            ptr(parity_out), ptr(ok), ptr(corrected),
-            B, size, nr, rs.fcr, rs.prim, rs.prim_inv, *self._stream(dev))
+        with torch.cuda.device(dev):
+            rc = build.load_library().pp_rs_decode(
+                int(mode == MODE_ERASURE), ptr(data), ptr(parity), ptr(eras_pos),
+                ptr(eras_count), eras_width, ptr(s_log), ptr(self.tables), ptr(data_out),
+                ptr(parity_out), ptr(ok), ptr(corrected),
+                B, size, nr, rs.fcr, rs.prim, rs.prim_inv, *self._stream(dev))
         if rc != 0:
             raise RuntimeError(f"rs_decode kernel launch failed: CUDA error {rc}")
         self.launches += 1

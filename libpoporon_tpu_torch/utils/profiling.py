@@ -68,20 +68,27 @@ def trace(log_dir: str):
     prof.export_chrome_trace(os.path.join(log_dir, f"trace_{time.time_ns()}.json"))
 
 
-def time_ms(fn, *args, warmup: int = 3, iters: int = 10) -> float:
+def time_ms(fn, *args, warmup: int = 3, iters: int = 10, devices=None) -> float:
     """Mean milliseconds of `iters` calls of fn(*args) after `warmup`
-    calls, by CUDA events on the current stream."""
+    calls, by CUDA events on the current stream of each card in `devices`
+    (default: the current card); with several cards, the longest of their
+    spans."""
+    devices = [None] if devices is None else list(devices)
     for _ in range(warmup):
         fn(*args)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
+    for d in devices:
+        torch.cuda.synchronize(d)
+    spans = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in devices]
+    for (start, _), d in zip(spans, devices):
+        start.record(torch.cuda.current_stream(d))
     for _ in range(iters):
         fn(*args)
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    for (_, end), d in zip(spans, devices):
+        end.record(torch.cuda.current_stream(d))
+    for _, end in spans:
+        end.synchronize()
+    return max(start.elapsed_time(end) for start, end in spans) / iters
 
 
 class ThroughputMeter:
