@@ -29,6 +29,7 @@ from .erasure import Erasure
 from .models.bch import BCHCodec
 from .models.ldpc import LDPCCodec
 from .models.rs import RSCodec
+from .utils.profiling import span
 from .utils.tensors import as_tensor
 
 
@@ -131,35 +132,36 @@ class Codec:
 
     def decode(self, data, parity, erasures=None, ext_syndrome=None,
                soft_llr=None) -> DecodeResult:
-        data = as_tensor(data, torch.uint8, self.device)
-        parity = as_tensor(parity, torch.uint8, self.device)
-        if soft_llr is not None:
-            soft_llr = as_tensor(soft_llr, torch.int8, self.device)
-        squeeze = data.ndim == 1
-        if squeeze:
-            data = data[None]
-            parity = parity[None]
-            if soft_llr is not None and soft_llr.ndim == 1:
-                soft_llr = soft_llr[None]
-        if parity.shape[:-1] != data.shape[:-1]:
-            # the JAX package fails here, joining the two in its codecs
-            raise ValueError(f"data {tuple(data.shape)} and parity {tuple(parity.shape)} "
-                             "differ in their batch")
-        if self.fec_type == FecType.RS:
-            if isinstance(erasures, Erasure):
-                erasures = erasures.positions.astype(np.int32)
-            res = DecodeResult(*self._rs.decode(
-                data, parity, erasures=erasures, ext_syndrome=ext_syndrome))
-        elif self.fec_type == FecType.LDPC:
-            res = self._decode_ldpc(data, parity, soft_llr)
-        else:
-            res = self._decode_bch(data, parity)
-        self.last_corrected = res.corrected
-        if squeeze:
-            res = DecodeResult(
-                res.ok[0], res.data[0], res.parity[0], res.corrected[0])
+        with span("poporon.facade.decode"):
+            data = as_tensor(data, torch.uint8, self.device)
+            parity = as_tensor(parity, torch.uint8, self.device)
+            if soft_llr is not None:
+                soft_llr = as_tensor(soft_llr, torch.int8, self.device)
+            squeeze = data.ndim == 1
+            if squeeze:
+                data = data[None]
+                parity = parity[None]
+                if soft_llr is not None and soft_llr.ndim == 1:
+                    soft_llr = soft_llr[None]
+            if parity.shape[:-1] != data.shape[:-1]:
+                # the JAX package fails here, joining the two in its codecs
+                raise ValueError(f"data {tuple(data.shape)} and parity "
+                                 f"{tuple(parity.shape)} differ in their batch")
+            if self.fec_type == FecType.RS:
+                if isinstance(erasures, Erasure):
+                    erasures = erasures.positions.astype(np.int32)
+                res = DecodeResult(*self._rs.decode(
+                    data, parity, erasures=erasures, ext_syndrome=ext_syndrome))
+            elif self.fec_type == FecType.LDPC:
+                res = self._decode_ldpc(data, parity, soft_llr)
+            else:
+                res = self._decode_bch(data, parity)
             self.last_corrected = res.corrected
-        return res
+            if squeeze:
+                res = DecodeResult(
+                    res.ok[0], res.data[0], res.parity[0], res.corrected[0])
+                self.last_corrected = res.corrected
+            return res
 
     def _decode_ldpc(self, data, parity, soft_llr) -> DecodeResult:
         c = self._ldpc

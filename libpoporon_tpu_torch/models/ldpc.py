@@ -33,6 +33,7 @@ import torch
 from ..config import LdpcConfig, LdpcMatrixType, LdpcRate
 from ..utils import bits as bitutils
 from ..utils.cache import LruCache
+from ..utils.profiling import span
 from ..utils.rng import Xoshiro128pp
 from ..utils.tensors import as_tensor
 from .ldpc_cuda import BPCudaKernel
@@ -704,12 +705,13 @@ class LDPCCodec:
         return self.cascade(lambda x, mi: self._decode(kind, x, mi), inputs, max_iterations)
 
     def _batched(self, fn, kind, x, dtype, max_iterations):
-        x = as_tensor(x, dtype, self.device)
-        squeeze = x.ndim == 1
-        if squeeze:
-            x = x[None]
-        ok, cw, iters = fn(kind, x, max_iterations or self.max_iterations)
-        return (ok[0], cw[0], iters[0]) if squeeze else (ok, cw, iters)
+        with span("poporon.codec.decode"):
+            x = as_tensor(x, dtype, self.device)
+            squeeze = x.ndim == 1
+            if squeeze:
+                x = x[None]
+            ok, cw, iters = fn(kind, x, max_iterations or self.max_iterations)
+            return (ok[0], cw[0], iters[0]) if squeeze else (ok, cw, iters)
 
     def decode_hard(self, codeword, max_iterations: int = 0):
         """codeword uint8 [B, codeword_bytes] (or 1-D) -> (ok, codeword_out,

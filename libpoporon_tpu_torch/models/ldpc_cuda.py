@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..utils import build
+from ..utils.profiling import span
 from ..utils.tensors import checked
 
 MODE_HARD_PACKED, MODE_SOFT_LLR8, MODE_HARD_LLR, MODE_SOFT_LLR = 0, 1, 2, 3
@@ -222,33 +223,34 @@ class BPCudaKernel:
         return self._blocks_per_sm[key]
 
     def _launch(self, mode, x, chan, out_width, out_dtype, mi):
-        dev = x.device
-        if dev.type != "cuda":
-            raise ValueError(f"the LDPC kernel takes CUDA tensors, got {dev}")
-        if mi < 1:
-            raise ValueError(f"max_iterations must be >= 1, got {mi}")
-        B = x.shape[0]
-        out = torch.empty(B, out_width, dtype=out_dtype, device=dev)
-        ok = torch.empty(B, dtype=torch.bool, device=dev)
-        iters = torch.empty(B, dtype=torch.int32, device=dev)
-        if B == 0:
+        with span("poporon.launch.ldpc_bp"):
+            dev = x.device
+            if dev.type != "cuda":
+                raise ValueError(f"the LDPC kernel takes CUDA tensors, got {dev}")
+            if mi < 1:
+                raise ValueError(f"max_iterations must be >= 1, got {mi}")
+            B = x.shape[0]
+            out = torch.empty(B, out_width, dtype=out_dtype, device=dev)
+            ok = torch.empty(B, dtype=torch.bool, device=dev)
+            iters = torch.empty(B, dtype=torch.int32, device=dev)
+            if B == 0:
+                return ok, out, iters
+            graph = self.graph.to(dev)
+            counter = torch.zeros(1, dtype=torch.int32, device=dev)
+            f = self.form
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            grid = min(sms * self.blocks_per_sm(mode, dev), -(-B // f["groups"]))
+
+            def ptr(t):
+                return None if t is None else t.data_ptr()
+
+            with torch.cuda.device(dev):
+                rc = build.load_library().pp_ldpc_bp(
+                    mode, ptr(x), ptr(chan), ptr(graph), ptr(out), ptr(ok), ptr(iters),
+                    ptr(counter), B, self.V, self.P, self.E, self.runs, self.dv, self.has_src,
+                    int(mi), int(f["form"] == "shared"), f["groups"], f["threads"], grid,
+                    dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+            if rc != 0:
+                raise RuntimeError(f"ldpc_bp kernel launch failed: CUDA error {rc}")
+            self.launches += 1
             return ok, out, iters
-        graph = self.graph.to(dev)
-        counter = torch.zeros(1, dtype=torch.int32, device=dev)
-        f = self.form
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        grid = min(sms * self.blocks_per_sm(mode, dev), -(-B // f["groups"]))
-
-        def ptr(t):
-            return None if t is None else t.data_ptr()
-
-        with torch.cuda.device(dev):
-            rc = build.load_library().pp_ldpc_bp(
-                mode, ptr(x), ptr(chan), ptr(graph), ptr(out), ptr(ok), ptr(iters),
-                ptr(counter), B, self.V, self.P, self.E, self.runs, self.dv, self.has_src,
-                int(mi), int(f["form"] == "shared"), f["groups"], f["threads"], grid,
-                dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"ldpc_bp kernel launch failed: CUDA error {rc}")
-        self.launches += 1
-        return ok, out, iters

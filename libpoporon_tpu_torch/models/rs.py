@@ -34,6 +34,7 @@ from ..ops.gf import GF, GFError
 from ..ops.gf2 import gf2_matmul
 from ..ops.gfint import gf_inv_clmul, gf_mul, gf_mul_clmul
 from ..utils.cache import LruCache
+from ..utils.profiling import span
 from ..utils.tensors import as_tensor
 from .rs_cuda import RSCudaDecoder
 
@@ -542,52 +543,53 @@ class RSCodec:
 
         Returns (ok [B] bool, data, parity, corrected [B] int32).
         """
-        data = as_tensor(data, torch.uint8, self.device)
-        parity = as_tensor(parity, torch.uint8, self.device)
-        squeeze = data.ndim == 1
-        if squeeze:
-            data = data[None]
-            parity = parity[None]
-        B, size = data.shape
-        pad = self.fs - self.num_roots - size
-        if pad < 0 or pad >= self.fs - self.num_roots:
-            z = torch.zeros(B, dtype=torch.int32, device=self.device)
-            out = (torch.zeros(B, dtype=torch.bool, device=self.device),
-                   data, parity, z)
-            return tuple(o[0] for o in out) if squeeze else out
-        if parity.shape[-1] != self.num_roots:
-            # the C reads num_roots parity bytes; the JAX package raises
-            # here too, where the widths fail to meet in its matmuls
-            raise ValueError(f"parity must be {self.num_roots} bytes, got {parity.shape[-1]}")
+        with span("poporon.codec.decode"):
+            data = as_tensor(data, torch.uint8, self.device)
+            parity = as_tensor(parity, torch.uint8, self.device)
+            squeeze = data.ndim == 1
+            if squeeze:
+                data = data[None]
+                parity = parity[None]
+            B, size = data.shape
+            pad = self.fs - self.num_roots - size
+            if pad < 0 or pad >= self.fs - self.num_roots:
+                z = torch.zeros(B, dtype=torch.int32, device=self.device)
+                out = (torch.zeros(B, dtype=torch.bool, device=self.device),
+                       data, parity, z)
+                return tuple(o[0] for o in out) if squeeze else out
+            if parity.shape[-1] != self.num_roots:
+                # the C reads num_roots parity bytes; the JAX package raises
+                # here too, where the widths fail to meet in its matmuls
+                raise ValueError(f"parity must be {self.num_roots} bytes, got {parity.shape[-1]}")
 
-        kern = self.kernel
-        if ext_syndrome is not None:
-            s = as_tensor(ext_syndrome, torch.int32, self.device)
-            if s.ndim == 1:
-                s = s[None].expand(B, self.num_roots)
-            if kern is not None:
-                out = kern.decode_ext(data, parity, s)
+            kern = self.kernel
+            if ext_syndrome is not None:
+                s = as_tensor(ext_syndrome, torch.int32, self.device)
+                if s.ndim == 1:
+                    s = s[None].expand(B, self.num_roots)
+                if kern is not None:
+                    out = kern.decode_ext(data, parity, s)
+                else:
+                    out = self._decode_ext_syndrome(data, parity, s)
+            elif erasures is not None:
+                if isinstance(erasures, tuple):
+                    pos, cnt = erasures
+                    pos = as_tensor(pos, torch.int32, self.device)
+                    cnt = as_tensor(cnt, torch.int32, self.device)
+                else:
+                    pos = as_tensor(erasures, torch.int32, self.device)
+                    if pos.ndim == 1:
+                        pos = pos[None].expand(B, pos.shape[0])
+                    cnt = torch.full((B,), pos.shape[1], dtype=torch.int32,
+                                     device=self.device)
+                if kern is not None and kern.supports_erasure(pos.shape[1]):
+                    out = kern.decode_erasure(data, parity, pos, cnt)
+                else:
+                    out = self._decode_erasure(data, parity, pos, cnt)
+            elif kern is not None:
+                out = kern.decode_plain(data, parity)
             else:
-                out = self._decode_ext_syndrome(data, parity, s)
-        elif erasures is not None:
-            if isinstance(erasures, tuple):
-                pos, cnt = erasures
-                pos = as_tensor(pos, torch.int32, self.device)
-                cnt = as_tensor(cnt, torch.int32, self.device)
-            else:
-                pos = as_tensor(erasures, torch.int32, self.device)
-                if pos.ndim == 1:
-                    pos = pos[None].expand(B, pos.shape[0])
-                cnt = torch.full((B,), pos.shape[1], dtype=torch.int32,
-                                 device=self.device)
-            if kern is not None and kern.supports_erasure(pos.shape[1]):
-                out = kern.decode_erasure(data, parity, pos, cnt)
-            else:
-                out = self._decode_erasure(data, parity, pos, cnt)
-        elif kern is not None:
-            out = kern.decode_plain(data, parity)
-        else:
-            out = self._decode_plain(data, parity)
-        if squeeze:
-            return tuple(o[0] for o in out)
-        return out
+                out = self._decode_plain(data, parity)
+            if squeeze:
+                return tuple(o[0] for o in out)
+            return out

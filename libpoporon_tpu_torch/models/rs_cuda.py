@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from ..utils import build
+from ..utils.profiling import span
 from ..utils.tensors import checked
 
 MODE_PLAIN, MODE_ERASURE, MODE_EXT = 0, 1, 2
@@ -134,16 +135,17 @@ class RSCudaDecoder:
         return dev.index or 0, torch.cuda.current_stream(dev).cuda_stream
 
     def _syndromes(self, data, parity):
-        rs = self.rs
-        B, size = data.shape
-        s_log = torch.empty(B, rs.num_roots, dtype=torch.int32, device=data.device)
-        if B == 0:
-            return s_log
-        with torch.cuda.device(data.device):   # the launcher sets the device
-            rc = build.load_library().pp_rs_syndrome(
-                data.data_ptr(), parity.data_ptr(), self.columns.data_ptr(),
-                self.tables.data_ptr(), s_log.data_ptr(), B, size, rs.num_roots,
-                self.columns.shape[2], *self._stream(data.device))
+        with span("poporon.launch.rs_syndrome"):
+            rs = self.rs
+            B, size = data.shape
+            s_log = torch.empty(B, rs.num_roots, dtype=torch.int32, device=data.device)
+            if B == 0:
+                return s_log
+            with torch.cuda.device(data.device):   # the launcher sets the device
+                rc = build.load_library().pp_rs_syndrome(
+                    data.data_ptr(), parity.data_ptr(), self.columns.data_ptr(),
+                    self.tables.data_ptr(), s_log.data_ptr(), B, size, rs.num_roots,
+                    self.columns.shape[2], *self._stream(data.device))
         if rc != 0:
             raise RuntimeError(f"rs_syndrome kernel launch failed: CUDA error {rc}")
         self.launches += 1
@@ -154,40 +156,41 @@ class RSCudaDecoder:
                 s_log=None):
         """The decode of CUDA tensors: in plain and erasure mode the
         syndrome kernel, then the decode kernel from the syndromes."""
-        rs = self.rs
-        data, parity = self._rows(data, parity)
-        dev = data.device
-        B, size = data.shape
-        nr = rs.num_roots
-        eras_width = 0
-        if mode == MODE_ERASURE:
-            eras_width = eras_pos.shape[1]
-            if not self.supports_erasure(eras_width):
-                raise ValueError(f"erasure width {eras_width} outside 1..{nr}")
-            eras_pos = checked(eras_pos, torch.int32, (B, eras_width), dev)
-            eras_count = checked(eras_count, torch.int32, (B,), dev)
-        if mode == MODE_EXT:
-            s_log = checked(s_log, torch.int32, (B, nr), dev)
-        else:
-            s_log = self._syndromes(data, parity)
+        with span("poporon.launch.rs_decode"):
+            rs = self.rs
+            data, parity = self._rows(data, parity)
+            dev = data.device
+            B, size = data.shape
+            nr = rs.num_roots
+            eras_width = 0
+            if mode == MODE_ERASURE:
+                eras_width = eras_pos.shape[1]
+                if not self.supports_erasure(eras_width):
+                    raise ValueError(f"erasure width {eras_width} outside 1..{nr}")
+                eras_pos = checked(eras_pos, torch.int32, (B, eras_width), dev)
+                eras_count = checked(eras_count, torch.int32, (B,), dev)
+            if mode == MODE_EXT:
+                s_log = checked(s_log, torch.int32, (B, nr), dev)
+            else:
+                s_log = self._syndromes(data, parity)
 
-        data_out = torch.empty_like(data)
-        parity_out = torch.empty_like(parity)
-        ok = torch.empty(B, dtype=torch.bool, device=dev)
-        corrected = torch.empty(B, dtype=torch.int32, device=dev)
-        if B == 0:
+            data_out = torch.empty_like(data)
+            parity_out = torch.empty_like(parity)
+            ok = torch.empty(B, dtype=torch.bool, device=dev)
+            corrected = torch.empty(B, dtype=torch.int32, device=dev)
+            if B == 0:
+                return ok, data_out, parity_out, corrected
+
+            def ptr(t):
+                return None if t is None else t.data_ptr()
+
+            with torch.cuda.device(dev):
+                rc = build.load_library().pp_rs_decode(
+                    int(mode == MODE_ERASURE), ptr(data), ptr(parity), ptr(eras_pos),
+                    ptr(eras_count), eras_width, ptr(s_log), ptr(self.tables), ptr(data_out),
+                    ptr(parity_out), ptr(ok), ptr(corrected),
+                    B, size, nr, rs.fcr, rs.prim, rs.prim_inv, *self._stream(dev))
+            if rc != 0:
+                raise RuntimeError(f"rs_decode kernel launch failed: CUDA error {rc}")
+            self.launches += 1
             return ok, data_out, parity_out, corrected
-
-        def ptr(t):
-            return None if t is None else t.data_ptr()
-
-        with torch.cuda.device(dev):
-            rc = build.load_library().pp_rs_decode(
-                int(mode == MODE_ERASURE), ptr(data), ptr(parity), ptr(eras_pos),
-                ptr(eras_count), eras_width, ptr(s_log), ptr(self.tables), ptr(data_out),
-                ptr(parity_out), ptr(ok), ptr(corrected),
-                B, size, nr, rs.fcr, rs.prim, rs.prim_inv, *self._stream(dev))
-        if rc != 0:
-            raise RuntimeError(f"rs_decode kernel launch failed: CUDA error {rc}")
-        self.launches += 1
-        return ok, data_out, parity_out, corrected

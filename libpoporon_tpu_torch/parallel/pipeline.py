@@ -20,6 +20,7 @@ import torch
 from ..config import FecType
 from ..erasure import Erasure
 from ..facade import Codec, DecodeResult, EncodeResult
+from ..utils.profiling import span
 from .mesh import BATCH_AXIS, batch_mesh, canonical_device, pad_to_multiple, shard_batch
 from .stats import _reduce
 
@@ -91,20 +92,23 @@ class ShardedCodec:
         """The facade's decode, sharded: data, parity and soft_llr are
         padded and split; every other keyword goes to each shard (see
         _per_row)."""
-        data, n = self._pad(data)
-        parity, _ = self._pad(parity)
-        B = data.shape[0]
-        columns = [shard_batch(data, self.mesh), shard_batch(parity, self.mesh)]
-        names = []
-        for name, value in kw.items():
-            if name == "soft_llr" and value is not None:
-                columns.append(shard_batch(self._pad(value)[0], self.mesh))
-            else:
-                columns.append(self._per_row(name, value, B, n))
-            names.append(name)
-        parts = self._run(lambda c, d, p, *rest: c.decode(d, p, **dict(zip(names, rest))),
-                          zip(*columns))
-        return DecodeResult(*self._join(parts, n))
+        with span("poporon.shard.decode"):
+            with span("poporon.shard.split"):
+                data, n = self._pad(data)
+                parity, _ = self._pad(parity)
+                B = data.shape[0]
+                columns = [shard_batch(data, self.mesh), shard_batch(parity, self.mesh)]
+                names = []
+                for name, value in kw.items():
+                    if name == "soft_llr" and value is not None:
+                        columns.append(shard_batch(self._pad(value)[0], self.mesh))
+                    else:
+                        columns.append(self._per_row(name, value, B, n))
+                    names.append(name)
+            parts = self._run(lambda c, d, p, *rest: c.decode(d, p, **dict(zip(names, rest))),
+                              zip(*columns))
+            with span("poporon.shard.join"):
+                return DecodeResult(*self._join(parts, n))
 
     def ldpc_decode_step(self, codeword, reference_bits=None):
         """One LDPC hard-decode step over the mesh with summed statistics.

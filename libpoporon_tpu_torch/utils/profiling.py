@@ -8,6 +8,18 @@ only: they raise where torch sees no CUDA device, and `measure` raises
 when its callable's results are not on a CUDA device, so that no CPU time
 is reported under a device metric's name.  `card_info` names the card and its power limit, which
 every number taken on it carries.
+
+`span(name)` marks a layer of the port inside a torch.profiler trace.
+The decode path opens one at each layer boundary (`poporon.facade.decode`,
+`poporon.codec.decode`, `poporon.launch.<kernel>`, `poporon.shard.*`);
+they nest on the caller's thread, and the outermost one of a call is the
+request.  A span is recorded only while a torch profiler records; at any
+other time it is one shared no-op, at the cost of one check.  To see
+where a call's time goes, run it under `trace(log_dir)` (or any
+`torch.profiler.profile`): the Chrome trace holds the `poporon.*` spans
+on the host's timeline beside the card's operations, on the same clock,
+and each device operation's `correlation` names the runtime call, inside
+some span, that launched it.
 """
 
 from __future__ import annotations
@@ -19,6 +31,21 @@ import subprocess
 import time
 
 import torch
+
+
+_NO_SPAN = contextlib.nullcontext()
+_profiler_enabled = torch.autograd._profiler_enabled
+
+
+def span(name: str):
+    """A context manager that records the block as `name` in the trace
+    of the torch profiler that is recording, and does nothing when none
+    is.  record_function is never called without a profiler: it costs
+    tens of microseconds a call even then.  Put no ids in `name`, so that
+    the spans of many calls aggregate by name."""
+    if _profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 def card_info() -> str:
