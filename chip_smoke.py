@@ -15,7 +15,11 @@ each slice of the port:
   syndrome kernel and the decode in all three modes against their plain
   PyTorch versions on the card (rows within and past the code's
   capacity, erasures with extra errors, so that BM runs long with
-  nonzero discrepancies), and times both.
+  nonzero discrepancies), and times both; then the decode on the
+  benchmark cell `rs255.ser2.dev`'s mix (every symbol hit at 2/255, so
+  Binomial errors a row) at B = 131072, plain and from the syndromes (the
+  decode kernel alone), each equal to its plain version there and at
+  B = 131071, a ragged last warp.
 - LDPC 128-byte rate-1/2: drives the facade at B = 131072 in both
   configurations users run, hard (`LdpcConfig(128, RATE_1_2)`, 4 flipped
   bits a row) and soft (`ldpc_config_default(128, RATE_1_2)`, int8 LLRs
@@ -1544,7 +1548,9 @@ def main(argv=None) -> int:
     data_dev = torch.as_tensor(data, device=dev)
     d_dev, p_dev = torch.as_tensor(bad, device=dev), enc.parity
     eras, epos = rs_kernel.erasures_32(rng, data)
-    timed = rs_kernel.calls(codec, bad, p_dev, eras, epos)
+    # a generator of its own, so that the later phases' inputs stay as they were
+    binom = rs_kernel.binomial_errors(np.random.default_rng(1), data, enc.parity.cpu().numpy())
+    timed = rs_kernel.calls(codec, bad, p_dev, eras, epos, binom)
     ms, plain_ms, rs_bound = kernel_vs_plain("rs_decode_2err", *timed["k1_plain"],
                                              in_bytes=255, ops_kw={})
     kernel_vs_plain("rs_erasure_32", *timed["k2_erasure_32"],
@@ -1552,6 +1558,21 @@ def main(argv=None) -> int:
     kernel_vs_plain("rs_ext_syndrome", *timed["k3_ext"],
                     in_bytes=255 + 32 * 4, ops_kw={"syndromes": False})
     syn_entry = syndrome_timing(kern, *timed["syndromes"], common)
+    # rs255.ser2.dev's rows: plain (both kernels), then the decode kernel
+    # alone; each equal to its plain version at B and at B - 1
+    kernel_vs_plain("rs_decode_binomial", *timed["k1_binomial"],
+                    in_bytes=255, ops_kw={})
+    kernel_vs_plain("rs_ext_binomial", *timed["k3_binomial"],
+                    in_bytes=255 + 32 * 4, ops_kw={"syndromes": False})
+    for name in ("k1_binomial", "k3_binomial"):
+        kernel_fn, plain_fn, args = timed[name]
+        ragged = [a[: BATCH - 1] for a in args]
+        got, want = kernel_fn(*ragged), plain_fn(*ragged)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"{name} B={BATCH - 1}: kernel != plain")
+    log({"phase": "rs_binomial", "batch": BATCH, "ragged_batch": BATCH - 1,
+         "rows_with_errors": int((timed["k3_binomial"][2][2] != rs.fs).any(dim=1).sum()),
+         "kernel_vs_plain": "equal"})
 
     off = pt.create(pt.RSConfig(use_kernel="off"), device="cuda")
     check(off._rs.kernel is None, "use_kernel='off' still has a kernel")

@@ -7,9 +7,12 @@ At B = 131072 codewords of RS(255,223) (`rs_config_default()`), made
 from a seed: the plain decode of rows with 2 symbol errors (`k1_plain`),
 the erasure decode of rows with the same 32 erased positions
 (`k2_erasure_32`), the external-syndrome decode from their log-form
-syndromes (`k3_ext`), the syndrome kernel alone (`syndromes`) and the
-facade's decode of the 2-error rows (`facade`); all of them, or the
-ENTRY names given.  Each is first checked (the decodes recover every row,
+syndromes (`k3_ext`), the syndrome kernel alone (`syndromes`), the
+facade's decode of the 2-error rows (`facade`), and the plain and
+external-syndrome decodes of rows whose every symbol, data and parity,
+is hit at 2/255 (`k1_binomial`, `k3_binomial`: Binomial errors a row, the
+mix of fecbench's `rs255.ser2.dev`); all of them, or the ENTRY names
+given.  Each is first checked (the decodes recover every row,
 the syndromes equal their plain version), then timed twice with CUDA
 events (3 warm-up and 10 timed calls each).  Each line is one JSON
 object carrying the card's name and power limit and the package it
@@ -26,16 +29,18 @@ Omega and Forney, verify and apply; the wait at the block's barrier;
 the rows written back), charging the cycles since the last reading to
 the stage it leaves, so that a row that returns early charges its last
 stage.  One lane of each warp adds the warp's sums.  It prints the cycles
-a codeword spends in each stage for the 2-error rows (`k3_ext`) and the
-32-erasure rows (`k2_erasure_32`), and each stage's ms: its share of the
-cycles times the uninstrumented decode kernel's time (K3's; K2's less
-the syndrome kernel's).  The stamps are placed by the text anchors in
+a codeword spends in each stage for the 2-error rows (`k3_ext`), the
+Binomial rows (`k3_binomial`) and the 32-erasure rows (`k2_erasure_32`),
+and each stage's ms: its share of the cycles times the uninstrumented
+decode kernel's time (the ext entries'; K2's less the syndrome
+kernel's).  The stamps are placed by the text anchors in
 `ANCHORS`; an edit to the kernel that moves one makes the build raise.
 Needs a card and nvcc.
 
 chip_smoke.py's RS timing (phase 4) takes its inputs (`two_errors`,
-`erasures_32`), its calls (`calls`) and its timer (`time_in_turns`) from
-here, adding the plain versions' times and the bounds.
+`erasures_32`, `binomial_errors`), its calls (`calls`) and its timer
+(`time_in_turns`) from here, adding the plain versions' times and the
+bounds.
 """
 
 from __future__ import annotations
@@ -55,6 +60,7 @@ from libpoporon_tpu_torch.utils import build
 from libpoporon_tpu_torch.utils.profiling import card_info, time_ms
 
 BATCH = 131072
+PER_SYMBOL = 2 / 255   # fecbench/traffic/ser2.dev.json's symbol error rate
 
 # entry -> its kernel call and its plain version, of (facade codec, models.rs.RSCodec)
 ENTRIES = {
@@ -63,6 +69,8 @@ ENTRIES = {
     "k3_ext": lambda c, rs: (rs.kernel.decode_ext, rs._decode_ext_syndrome),
     "syndromes": lambda c, rs: (rs.kernel.syndromes, lambda d, p: plain_syndromes(rs, d, p)),
     "facade": lambda c, rs: (c.decode, None),
+    "k1_binomial": lambda c, rs: (rs.kernel.decode_plain, rs._decode_plain),
+    "k3_binomial": lambda c, rs: (rs.kernel.decode_ext, rs._decode_ext_syndrome),
 }
 
 
@@ -92,20 +100,33 @@ def erasures_32(rng, data):
     return eras, epos
 
 
+def binomial_errors(rng, data, parity):
+    """data and parity with every symbol hit independently at PER_SYMBOL by
+    a random nonzero XOR, so that the errors a row are Binomial(n,
+    PER_SYMBOL) (fecbench/channels/symbol_errors.py's channel)."""
+    word = np.concatenate([data, parity], axis=1)
+    hit = rng.random(word.shape) < PER_SYMBOL
+    word = word ^ np.where(hit, rng.integers(1, 256, word.shape), 0).astype(np.uint8)
+    k = data.shape[1]
+    return word[:, :k], word[:, k:]
+
+
 def plain_syndromes(rs, d, p):
     """The syndrome kernel's plain version: log-form syndromes int32 [B, nr]."""
     return rs.exp2log[rs._syndrome(d, p).long()]
 
 
-def calls(codec, bad, parity, eras, epos, names=tuple(ENTRIES)):
+def calls(codec, bad, parity, eras, epos, binomial, names=tuple(ENTRIES)):
     """name -> (kernel call, plain call or None, args) for the entries
     `names`, on parity's device: bad the 2-error rows (`two_errors`),
     parity the originals' (CUDA tensor), eras and epos the 32-erasure rows
-    and their positions (`erasures_32`)."""
+    and their positions (`erasures_32`), binomial the Binomial rows' data
+    and parity (`binomial_errors`)."""
     rs = codec._rs
     dev = parity.device
     B = parity.shape[0]
     d = torch.as_tensor(bad, device=dev)
+    bd, bp = (torch.as_tensor(a, device=dev) for a in binomial)
     args = {
         "k1_plain": (d, parity),
         "k2_erasure_32": (torch.as_tensor(eras, device=dev), parity,
@@ -114,6 +135,8 @@ def calls(codec, bad, parity, eras, epos, names=tuple(ENTRIES)):
         "k3_ext": (d, parity, plain_syndromes(rs, d, parity)),
         "syndromes": (d, parity),
         "facade": (d, parity),
+        "k1_binomial": (bd, bp),
+        "k3_binomial": (bd, bp, plain_syndromes(rs, bd, bp)),
     }
     return {name: (*ENTRIES[name](codec, rs), args[name]) for name in names}
 
@@ -169,21 +192,26 @@ struct PPStamps {
 LABELS = ("stage_in", "syndromes", "erasure_locator", "bm", "degree_chien",
           "omega_forney", "verify_apply", "wait", "stage_out")
 # (pattern, replacement) pairs that place the stamps; each pattern must
-# match once.  decode_row gets the kernel's stamps as a last argument.
+# match once.  locate_row and finish_row get the kernel's stamps as a last
+# argument; the Chien sweep, which every thread of a warp runs, is charged
+# to "degree_chien" on every thread.
 ANCHORS = [
     (r"(#include <cuda_runtime.h>\n)", r"\1" + _PRELUDE.replace("\\", "\\\\")),
-    (r"(uint8_t\* word, long long row, int\* corrected)\) \{\n",
-     r"\1, PPStamps& pp) {\n"),
+    (r"(uint8_t\* el, bool\* ok)\) \{\n", r"\1, PPStamps& pp) {\n"),
     (r"(\n  // 2\. Start locator)", r"\n  pp.stage(2);\1"),
     (r"(\n  // 3\. Berlekamp-Massey)", r"\n  pp.stage(3);\1"),
     (r"(\n  // 4\. Degree)", r"\n  pp.stage(4);\1"),
+    (r"(uint8_t\* word, long long row, int\* corrected)\) \{\n",
+     r"\1, PPStamps& pp) {\n"),
     (r"(\n  // 6\. Omega)", r"\n  pp.stage(5);\1"),
     (r"(\n  // 8\. Verify)", r"\n  pp.stage(6);\1"),
     (r"(  __shared__ uint8_t s_rows\[kThreads \* kRowStride\];\n)", r"\1  PPStamps pp;\n"),
     (r"(  stage_rows<kThreads>\(p\.parity \+ row0 \* nr, nr, rows, s_rows, size\);\n"
      r"  __syncthreads\(\);\n)", r"\1  pp.stage(1);\n"),
+    (r"(S, el, &ok)\);\n", r"\1, pp);\n"),
+    (r"(  chien_sweep\(gf, el, deg, hits\);\n)", r"  pp.stage(4);\n\1"),
     (r"(&corrected)\);\n", r"\1, pp);\n"),
-    (r"(    p\.corrected_out\[row0 \+ tid\] = corrected;\n  \}\n)(  __syncthreads\(\);\n)",
+    (r"(    p\.corrected_out\[row\] = corrected;\n  \}\n)(  __syncthreads\(\);\n)",
      r"\1  pp.stage(7);\n\2  pp.stage(8);\n"),
     (r"(    pdst\[i\] = s_rows\[r \* kRowStride \+ size \+ \(i - r \* nr\)\];\n  \}\n)(\}\n)",
      r"\1  pp.flush();\n\2"),
@@ -225,13 +253,15 @@ def instrumented_library() -> ctypes.CDLL:
 
 
 def breakdown(timed, common) -> None:
-    """The stage split of the decode kernel for the 2-error rows (ext mode)
-    and the 32-erasure rows, from the stamped copy."""
+    """The stage split of the decode kernel for the 2-error and the
+    Binomial rows (ext mode) and the 32-erasure rows, from the stamped
+    copy."""
     ms = {name: time_ms(fn, *args) for name, (fn, _, args) in timed.items()}
-    decode_ms = {"k3_ext": ms["k3_ext"], "k2_erasure_32": ms["k2_erasure_32"] - ms["syndromes"]}
+    decode_ms = {"k3_ext": ms["k3_ext"], "k3_binomial": ms["k3_binomial"],
+                 "k2_erasure_32": ms["k2_erasure_32"] - ms["syndromes"]}
     lib = instrumented_library()
     build.load_library = lambda: lib     # the wrappers now launch the stamped copy
-    for name in ("k3_ext", "k2_erasure_32"):
+    for name in ("k3_ext", "k3_binomial", "k2_erasure_32"):
         fn, _, args = timed[name]
         fn(*args)                        # warm-up
         torch.cuda.synchronize()
@@ -264,14 +294,14 @@ def main(argv=None) -> int:
                     help=f"entries to time, of {list(ENTRIES)}; all by default")
     ap.add_argument("--breakdown", action="store_true",
                     help="split the decode kernel's time by stage with clock64() stamps "
-                         "(k3_ext and k2_erasure_32; ENTRY names are not read)")
+                         "(k3_ext, k3_binomial and k2_erasure_32; ENTRY names are not read)")
     opts = ap.parse_args(argv)
     names = opts.entries or list(ENTRIES)
     unknown = set(names) - set(ENTRIES)
     if unknown:
         raise SystemExit(f"unknown entries {sorted(unknown)}; known: {list(ENTRIES)}")
     if opts.breakdown:
-        names = ["k2_erasure_32", "k3_ext", "syndromes"]
+        names = ["k2_erasure_32", "k3_ext", "k3_binomial", "syndromes"]
     if not torch.cuda.is_available():
         raise RuntimeError("rs_kernel measures the card, and torch sees no CUDA device")
     dev = torch.device("cuda")
@@ -282,9 +312,10 @@ def main(argv=None) -> int:
     bad = two_errors(rng, data)
     eras, epos = erasures_32(rng, data)
     parity = codec.encode(torch.as_tensor(data, device=dev)).parity
+    binomial = binomial_errors(rng, data, parity.cpu().numpy())
     want = torch.as_tensor(data, device=dev)
 
-    timed = calls(codec, bad, parity, eras, epos, names)
+    timed = calls(codec, bad, parity, eras, epos, binomial, names)
     for name, (fn, plain_fn, args) in timed.items():
         got = fn(*args)
         if name == "syndromes":

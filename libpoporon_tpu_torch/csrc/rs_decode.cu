@@ -27,12 +27,13 @@
 // table gather.  What bounds it: 8W XORs a bit (2,040 bits a codeword),
 // integer issue, not HBM (255 + 4 nr bytes a codeword).
 //
-// Decode, simple first.  What bounds it: for rows with errors, Chien over
-// up to 255 points, BM, Forney and verify, each GF product two
-// shared-memory table loads and a few integer ops, on state in local
-// memory; not HBM (67 to 84 MB at B = 131072, about 0.025 ms).
-// - One thread per codeword, 128 threads per block, grid ceil(B / 128);
-//   the ragged last block is masked here, so the host pads nothing.
+// Decode.  What bounds it: for rows with errors, BM, Chien over the 255
+// points, Forney and verify, each GF product two shared-memory table loads
+// and a few integer ops, on state in local memory; not HBM (67 to 84 MB
+// at B = 131072, about 0.025 ms).
+// - One thread per codeword for every stage but Chien, 128 threads per
+//   block, grid ceil(B / 128); the ragged last block is masked here, so
+//   the host pads nothing.
 // - The block stages its 128 rows (data, then parity) into shared memory
 //   with coalesced 16-byte loads (`stage_rows`, as the syndrome kernel
 //   does), each thread decodes its own row in place, and the block copies
@@ -43,8 +44,8 @@
 // - log, antilog, sec and inv tables sit in shared memory (4 x 256 ints).
 // - Per-thread state (syndromes, locator, roots, corrections; nr <= 64)
 //   lives in small local arrays.
-// - A row without syndrome errors returns untouched as soon as that is
-//   known; a row that fails a pre-check returns before Forney.
+// - A row without syndrome errors is left untouched as soon as that is
+//   known; a row that fails a pre-check skips Forney.
 // - The erasure apply follows the XLA path (rs.py:534-542), not the
 //   Pallas kernel: locator slots past the E given positions read position
 //   0, and coefficients landing on one position are summed, not XORed.
@@ -61,11 +62,26 @@
 // moving it (step 3 says why each cut is exact): about 2 nr (L + 1) +
 // 8 L (L + 1) products and sums.  The locator is the fixed loop's, bit for
 // bit (tests/test_torch_rs_bm.py emulates this loop against the JAX one).
-// Chien, Omega, Forney and verify are as before; the ext mode's time
-// (decode kernel alone) is this stage's measure: 0.685 -> 0.28 ms at
-// B = 131072, two errors a row (H100 80GB HBM3, 700 W).  ptxas: 80
-// registers in both modes, a 528-byte stack frame (the per-thread
-// arrays), no spills.
+//
+// Chien, a warp a row (`chien_sweep`).  A thread scanning its own row
+// steps deg logs in local memory a point until its last root, so a warp
+// ran as long as its latest root and as deep as its largest degree: under
+// Binomial errors a row (2/255 a symbol) a warp's worst row has degree 5.4
+// on average, against 2.0 for the mean row, and Chien was half the
+// kernel's cycles.  Here the warp sweeps its rows of degree >= 1 one after
+// another, the 32 lanes 8 points each, the terms' logs stepped in
+// registers, so a row costs 8 deg term-steps a lane whatever the others
+// hold; one ballot a step gives the roots in scan order.  What bounds it:
+// the antilog gathers (a lane-strided exponent, so 2^k-way bank conflicts
+// for even j; a byte-wide table measured no faster) and about five
+// integer instructions a term-step.  Its measure, the decode kernel alone at
+// B = 131072 (ext mode; H100 80GB HBM3, 700 W): Binomial rows 0.635 ->
+// 0.302 ms, two errors a row 0.283 -> 0.190 ms, 32 erasures (both
+// launches) 2.930 -> 2.395 ms.  The roots, their order, found and
+// fail_pad are the scan's, bit for bit (tests/test_torch_rs_chien.py
+// emulates the sweep against the JAX Chien).  ptxas: 78 registers (80 in
+// erasure mode), a 416-byte stack frame (480), no spills; 6 blocks an SM,
+// as before, by both registers and shared memory.
 
 #include <cstdint>
 
@@ -80,6 +96,8 @@ using gf8::kFs;
 constexpr int kThreads = 128;    // codewords per block of the decode kernel
 constexpr int kMaxRoots = 64;    // nr limit of the per-thread arrays
 constexpr int kRowStride = 260;  // bytes between staged rows
+constexpr int kSweepSteps = 8;   // Chien points a lane: 32 lanes x 8 >= fs
+constexpr unsigned kFullWarp = 0xffffffffu;
 
 struct Params {
   const uint8_t* data;      // [B, size]
@@ -112,21 +130,20 @@ __device__ __forceinline__ int erasure_slot(const int32_t* pos, int width,
   return t < width ? pos[t] : 0;
 }
 
-// error_correction_u8 (decode.c:17-230) on the word staged in `word`
-// (size data symbols, then nr parity symbols), from its log-form
-// syndromes.  Corrects `word` in place where the XLA path would, and
-// returns ok; *corrected gets the count.
+// Steps 1 to 4 of error_correction_u8 (decode.c:17-230) for one row: the
+// syndromes S and the locator el (nr + 1 slots) from its log-form
+// syndromes.  Returns the locator's degree; where that is 0 the row ends
+// here and *ok says how: true for a row without syndrome errors, false
+// for a locator of degree 0 (fail_deg).
 template <bool ERASURE>
-__device__ bool decode_row(const Params& p, const gf8::Tables& gf,
-                           const int* sec, const int* inv, const int* va,
-                           uint8_t* word, long long row, int* corrected) {
-  const int nr = p.nr, size = p.size, n = size + nr;
-  const int pad = kFs - n;
-  *corrected = 0;
+__device__ __forceinline__ int locate_row(const Params& p, const gf8::Tables& gf,
+                                          const int* inv, long long row, uint8_t* S,
+                                          uint8_t* el, bool* ok) {
+  const int nr = p.nr;
+  const int pad = kFs - p.size - nr;
 
   // 1. Syndromes S_i = sum_j r_j alpha^{va_i (n-1-j)}, given in log form
   //    (sentinel fs = no error; a log outside [0, fs] reads as zero).
-  uint8_t S[kMaxRoots];
   bool has_err = false;
   const int32_t* sl = p.s_log + row * nr;
   for (int i = 0; i < nr; ++i) {
@@ -134,18 +151,16 @@ __device__ bool decode_row(const Params& p, const gf8::Tables& gf,
     has_err |= v != kFs;
     S[i] = (v >= 0 && v <= kFs) ? gf.antilog[v] : 0;
   }
-  if (!has_err) return true;
+  *ok = !has_err;
+  if (!has_err) return 0;
 
   // 2. Start locator: 1, or the erasure-locator product.
-  uint8_t el[kMaxRoots + 1], bp[kMaxRoots + 1];
+  uint8_t bp[kMaxRoots + 1];
   el[0] = 1;
   for (int j = 1; j <= nr; ++j) el[j] = 0;
   int ec = 0;  // erasure count, 8 bits wide as in the XLA path's BM
-  const int32_t* pos = nullptr;
-  int width = 0;
   if (ERASURE) {
-    pos = p.eras_pos + row * p.eras_width;
-    width = p.eras_width < nr ? p.eras_width : nr;
+    const int32_t* pos = p.eras_pos + row * p.eras_width;
     const int cnt = p.eras_cnt[row];
     if (cnt > 0) el[1] = erasure_term(gf, pos[0], pad, p.prim);
     for (int i = 1; i < p.eras_width && i < cnt; ++i) {
@@ -209,32 +224,77 @@ __device__ bool decode_row(const Params& p, const gf8::Tables& gf,
   }
 
   // 4. Degree.
-  int deg = 0;
-  for (int j = nr; j >= 1; --j) {
-    if (el[j]) {
-      deg = j;
-      break;
+  for (int j = nr; j >= 1; --j)
+    if (el[j]) return j;
+  return 0;  // fail_deg: word untouched
+}
+
+// 5. Chien at alpha^i, i = 1..fs, a warp a row.  Every lane of the warp
+//    calls it, those without a locator to sweep (deg 0) too.  The warp
+//    takes its rows of degree >= 1 in turn, by the bits of one ballot; the
+//    row's owner lane broadcasts its coefficients, and lane l evaluates the
+//    points i = l + 1 + 32 s, s < kSweepSteps, each term's log stepped in
+//    a register from (log el_j + j i) mod fs by 32 j.  One ballot a step
+//    is the set of that step's roots: bit l of hits[s] is the point
+//    l + 1 + 32 s, so the bits in order of s, then l, are the roots in
+//    scan order, and the owner keeps its row's hits.  All the roots are
+//    the scan's first deg: el_0 = 1, so el (degree deg) has at most deg
+//    roots among the fs distinct points.
+__device__ __forceinline__ void chien_sweep(const gf8::Tables& gf, const uint8_t* el,
+                                            int deg, uint32_t (&hits)[kSweepSteps]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int s = 0; s < kSweepSteps; ++s) hits[s] = 0;
+  for (uint32_t todo = __ballot_sync(kFullWarp, deg > 0); todo; todo &= todo - 1) {
+    const int owner = __ffs(todo) - 1;
+    const int d = __shfl_sync(kFullWarp, deg, owner);
+    int ev[kSweepSteps];
+#pragma unroll
+    for (int s = 0; s < kSweepSteps; ++s) ev[s] = 0;
+    for (int j = 1; j <= d; ++j) {
+      const int c = __shfl_sync(kFullWarp, lane == owner ? el[j] : 0, owner);
+      if (c == 0) continue;  // a zero coefficient, skipped by every lane
+      const int step = gf8::mod_fs(32 * j);
+      int e = gf8::mod_fs(gf.log[c] + j * (lane + 1));
+#pragma unroll
+      for (int s = 0; s < kSweepSteps; ++s) {
+        ev[s] ^= gf.antilog[e];
+        e += step;
+        if (e >= kFs) e -= kFs;
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < kSweepSteps; ++s) {
+      // el(alpha^i) = 0 where the terms sum to 1 (el_0 = 1); i = 256 is no point
+      const uint32_t b = __ballot_sync(kFullWarp, ev[s] == 1 && lane + 1 + 32 * s <= kFs);
+      if (lane == owner) hits[s] = b;
     }
   }
-  if (deg == 0) return false;  // fail_deg: word untouched
+}
 
-  // 5. Chien at alpha^i, i = 1..fs; the first deg roots in scan order.
-  uint8_t lt[kMaxRoots + 1];  // log(el_j) + j*i mod fs
-  for (int j = 1; j <= deg; ++j) lt[j] = gf.log[el[j]];
+// Steps 5 to 9 for a row whose locator el of degree deg >= 1 the warp
+// swept into hits: corrects `word` (size data symbols, then nr parity
+// symbols) in place where the XLA path would, and returns ok; *corrected
+// gets the count.
+template <bool ERASURE>
+__device__ __forceinline__ bool finish_row(const Params& p, const gf8::Tables& gf,
+                                           const int* sec, const int* inv, const int* va,
+                                           const uint8_t* S, const uint8_t* el, int deg,
+                                           const uint32_t (&hits)[kSweepSteps],
+                                           uint8_t* word, long long row, int* corrected) {
+  const int nr = p.nr, size = p.size, n = size + nr;
+  const int pad = kFs - n;
+  *corrected = 0;
+
+  // 5. (the owner's part) The roots in scan order, their locations, and
+  //    fail_pad: a location in the pad region.
   uint8_t root[kMaxRoots], loc[kMaxRoots];
   int found = 0;
   bool fail_pad = false;
-  for (int i = 1; i <= kFs && found < deg; ++i) {
-    int ev = 0;
-    for (int j = 1; j <= deg; ++j) {
-      int l = lt[j];
-      if (l == kFs) continue;
-      l += j;
-      if (l >= kFs) l -= kFs;
-      lt[j] = l;
-      ev ^= gf.antilog[l];
-    }
-    if (ev == 1) {  // el(alpha^i) = 0, since el_0 = 1
+#pragma unroll
+  for (int s = 0; s < kSweepSteps; ++s) {
+    for (uint32_t b = hits[s]; b; b &= b - 1) {
+      const int i = __ffs(b) + 32 * s;  // lane + 1 + 32 s
       const int k = gf8::mod_fs(i * p.prim_inv + kFs - 1);
       root[found] = i;
       loc[found] = k;
@@ -279,6 +339,8 @@ __device__ bool decode_row(const Params& p, const gf8::Tables& gf,
   if (ERASURE) {
     // Coefficient t at slot t's position, data region only; the sum of
     // the coefficients landing on one position is XORed in, low byte.
+    const int32_t* pos = p.eras_pos + row * p.eras_width;
+    const int width = p.eras_width < nr ? p.eras_width : nr;
     for (int t = 0; t < deg; ++t) {
       const int pt = erasure_slot(pos, width, t);
       if (pt < 0 || pt >= size) continue;
@@ -364,14 +426,24 @@ __global__ void __launch_bounds__(kThreads) rs_decode_kernel(const Params p) {
   stage_rows<kThreads>(p.parity + row0 * nr, nr, rows, s_rows, size);
   __syncthreads();
 
-  if (tid < rows) {
-    const gf8::Tables gf{s_tab, s_tab + 256};
-    int corrected;
-    const bool ok = decode_row<ERASURE>(p, gf, s_tab + 512, s_tab + 768, s_va,
-                                        s_rows + tid * kRowStride, row0 + tid,
-                                        &corrected);
-    p.ok_out[row0 + tid] = ok;
-    p.corrected_out[row0 + tid] = corrected;
+  // Every thread goes through the Chien sweep, those past the last row
+  // too: it is the whole warp's.
+  const gf8::Tables gf{s_tab, s_tab + 256};
+  const bool live = tid < rows;
+  const long long row = row0 + tid;
+  uint8_t S[kMaxRoots], el[kMaxRoots + 1];
+  bool ok = true;
+  int deg = 0;
+  if (live) deg = locate_row<ERASURE>(p, gf, s_tab + 768, row, S, el, &ok);
+  uint32_t hits[kSweepSteps];
+  chien_sweep(gf, el, deg, hits);
+  if (live) {
+    int corrected = 0;
+    if (deg > 0)
+      ok = finish_row<ERASURE>(p, gf, s_tab + 512, s_tab + 768, s_va, S, el, deg, hits,
+                               s_rows + tid * kRowStride, row, &corrected);
+    p.ok_out[row] = ok;
+    p.corrected_out[row] = corrected;
   }
   __syncthreads();
 
