@@ -969,6 +969,168 @@ def shim_phase(pt, dev, rng, common):
              "card": common["card"]})
 
 
+# ------------------------------------------------- stripes (phase 15)
+
+STRIPE_CONFIGS = (       # name, num_roots, cells n, erasure counts e
+    ("rs14_10", 4, 14, (1, 2, 3, 4)),      # HDFS RS-10-4: the tables' path
+    ("rs9_6", 3, 9, (1, 2, 3)),            # HDFS RS-6-3
+    ("nr32_n40", 32, 40, (1, 7, 32)),      # past the tables: every column errors-and-erasures
+)
+STRIPE_GROUP = 1 << 27   # columns of a 128 MiB block group
+STRIPE_BLOCK = 1 << 19   # columns a plain-version call takes in the block group's check
+
+
+def stripe_cells(rng, codec, n: int, L: int, dev):
+    """Shard-major cells uint8 [n, L] of L random codewords, encoded on the
+    card in blocks of 2^22 columns."""
+    import torch
+    rs = codec._rs
+    k = n - rs.num_roots
+    cells = torch.empty(n, L, dtype=torch.uint8, device=dev)
+    g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 31)))
+    for c in range(0, L, 1 << 22):
+        data = torch.randint(0, 256, (min(1 << 22, L - c), k), generator=g, device=dev,
+                             dtype=torch.uint8)
+        cells[:, c: c + data.shape[0]] = torch.cat([data, rs.encode(data)], dim=1).t()
+    return cells
+
+
+def stripe_hurt(rng, cells, lost, extra_max: int):
+    """cells (NumPy [n, L]) with the lost cells filled with junk (their
+    contents are ignored) and, in every 8th column at random, 1 to
+    extra_max symbol errors among the surviving cells."""
+    n, L = cells.shape
+    cells = cells.copy()
+    cells[list(lost)] = rng.integers(0, 256, (len(lost), L), dtype=np.uint8)
+    surv = np.array([j for j in range(n) if j not in lost])
+    cols = np.nonzero(rng.random(L) < 1 / 8)[0]
+    for m in range(extra_max):
+        pick = cols if m == 0 else cols[rng.random(len(cols)) < 0.5]
+        rows = surv[rng.integers(0, len(surv), len(pick))]
+        cells[rows, pick] ^= rng.integers(1, 256, len(pick), dtype=np.uint8)
+    return cells
+
+
+def stripe_group_check(codec, group, lost, rng) -> int:
+    """The stripe kernel on a whole block group with 1 or 2 symbol errors
+    among the survivors of every 64th column (every other one of those
+    past capacity at e = 1 and 2), against the plain version on the card
+    a block of STRIPE_BLOCK columns at a time: every output, the persistent
+    blocks' walk and the last block's sum of `failed` included.  Returns
+    the largest difference."""
+    import torch
+    dev, L = group.device, group.shape[1]
+    surv = torch.tensor([c for c in range(group.shape[0]) if c not in lost], device=dev)
+    g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 31)))
+    hurt = group.clone()
+    cols = torch.arange(0, L, 64, device=dev) + torch.randint(0, 64, (L // 64,), generator=g,
+                                                               device=dev)
+    first = torch.randint(0, len(surv), cols.shape, generator=g, device=dev)
+    hurt[surv[first], cols] ^= torch.randint(1, 256, cols.shape, generator=g, device=dev,
+                                             dtype=torch.uint8)
+    step = torch.randint(1, len(surv), cols[::2].shape, generator=g, device=dev)
+    hurt[surv[(first[::2] + step) % len(surv)], cols[::2]] ^= torch.randint(
+        1, 256, cols[::2].shape, generator=g, device=dev, dtype=torch.uint8)
+    got = codec.reconstruct(hurt, lost)
+    err, failed = 0, 0
+    for c in range(0, L, STRIPE_BLOCK):
+        want = codec._rs._reconstruct(hurt[:, c: c + STRIPE_BLOCK], tuple(lost))
+        for a, b in zip((got.ok[c: c + STRIPE_BLOCK], got.rebuilt[:, c: c + STRIPE_BLOCK],
+                         got.corrected[c: c + STRIPE_BLOCK]), want[:3]):
+            err = max(err, int((a.int() - b.int()).abs().max()))
+        failed += int(want[3])
+    check(failed > 0, f"block group lost={lost}: the errors failed no column")
+    return max(err, abs(int(got.failed) - failed))
+
+
+def stripe_phase(pt, dev, rng, common) -> dict:
+    """`Codec.reconstruct` on the card: the stripe kernel against its plain
+    version on the card (every output, `failed` included) at L = 131072
+    and 131071 (the 16-byte and the byte-wise loads), e = 1..nr lost cells
+    named ascending and in another order, and every 8th column with 1 to
+    (nr - e) / 2 + 1 symbol errors among the survivors (the
+    errors-and-erasures path, within and past capacity); each call one
+    launch, and a second call equal to the first (the kernel's ticket
+    left at zero); where no survivor is hurt, the lost cells' own bytes.
+    RS(40, 8) of 32 roots has no tables: every column takes the
+    errors-and-erasures path.  Then a whole block group (14 cells of 2^27
+    bytes) at e = 2, then 1 (a launch with more shared memory after one
+    with less), named in the order drawn: the call's launches,
+    the lost cells' own bytes back, and `stripe_group_check`; the
+    kernel's time beside its bound, and the plain version's at 131072."""
+    import torch
+    from libpoporon_tpu_torch.utils.profiling import time_ms
+    cases = 0
+    for name, nr, n, es in STRIPE_CONFIGS:
+        first = cases
+        codec = pt.create(pt.RSConfig(num_roots=nr), device="cuda")
+        rs, kern = codec._rs, codec._rs.kernel
+        check(kern is not None, f"{name}: no kernel")
+        for L in (BATCH, BATCH - 1):
+            word = stripe_cells(rng, codec, n, L, dev).cpu().numpy()
+            for e in es:
+                lost = rng.choice(n, e, replace=False).tolist()
+                for order in (sorted(lost), lost):
+                    cells = torch.as_tensor(stripe_hurt(rng, word, order, (nr - e) // 2 + 1),
+                                            device=dev)
+                    before = kern.stripe_launches
+                    got = codec.reconstruct(cells, order)
+                    check(kern.stripe_launches == before + 1,
+                          f"{name} L={L} lost={order}: {kern.stripe_launches - before} launches")
+                    want = rs._reconstruct(cells, tuple(order))
+                    again = codec.reconstruct(cells, order)
+                    torch.cuda.synchronize()
+                    for tag, a, b in zip(("ok", "rebuilt", "corrected", "failed"), got, want):
+                        check(a.dtype == b.dtype and torch.equal(a, b),
+                              f"{name} L={L} lost={order}: {tag} != the plain version's")
+                    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                          f"{name} L={L} lost={order}: a second call differs")
+                    sound = (cells.cpu().numpy() == word)[[j for j in range(n)
+                                                           if j not in order]].all(0)
+                    check(np.array_equal(got.rebuilt.cpu().numpy()[:, sound],
+                                         word[order][:, sound]),
+                          f"{name} L={L} lost={order}: not the lost cells' own bytes")
+                    cases += 1
+        log({"phase": "stripe", "config": name, "cells": n, "roots": nr,
+             "tables": kern._stripe_plan(n, (0,)).fast, "cases": cases - first})
+
+    # a whole block group, e = 2 and 1: checked, then timed beside the
+    # plain version at 131072
+    codec = pt.create(pt.RSConfig(num_roots=4), device="cuda")
+    kern = codec._rs.kernel
+    group = stripe_cells(rng, codec, 14, STRIPE_GROUP, dev)
+    small = group[:, :BATCH].contiguous()
+    entry, group_err = None, 0
+    for e in (2, 1):
+        lost = rng.choice(14, e, replace=False).tolist()
+        kern.launches = kern.stripe_launches = 0
+        got = codec.reconstruct(group, lost)
+        launches = kern.stripe_launches
+        check((kern.launches, launches) == (1, 1),
+              f"block group lost={lost}: {kern.launches} launches, {launches} of the stripe kernel")
+        check(int(got.failed) == 0 and bool(got.ok.all()), f"block group lost={lost}: not ok")
+        check(torch.equal(got.rebuilt, group[lost]),
+              f"block group lost={lost}: not the lost cells' own bytes")
+        del got
+        err = stripe_group_check(codec, group, lost, rng)
+        check(err == 0, f"block group lost={lost}: {err} off the plain version")
+        group_err = max(group_err, err)
+        ms = time_ms(codec.reconstruct, group, lost)
+        plain_ms = time_ms(codec._rs._reconstruct, small, tuple(lost), warmup=1, iters=3)
+        b = bound(STRIPE_GROUP * (14 - e + e + 2) + 4, 0)
+        log({"bench": "rs_stripe", "cells": 14, "columns": STRIPE_GROUP, "lost": lost,
+             "kernel_ms": ms, "GB_per_s": STRIPE_GROUP * (16 - e + e) / ms / 1e6,
+             "plain_ms_at_131072": plain_ms, **b, "share_of_bound": b["bound_ms"] / ms,
+             **common})
+        entry = {"name": "rs_stripe", "route": "cuda",
+                 "source": "libpoporon_tpu_torch/csrc/rs_decode.cu",
+                 "replaces": None, "launches": launches, "ms": ms,
+                 "plain_ms": plain_ms, "plain_columns": BATCH, **b, "library_ms": None}
+    entry["max_abs_err"] = group_err
+    log({"phase": "stripe", "cases": cases, "block_group_max_abs_err": group_err})
+    return entry
+
+
 # ------------------------------------------------------- parallel/ (phase 13)
 
 PAR_ODD = BATCH - 1     # the two-entry mesh's batch: one pad row, then split
@@ -1375,6 +1537,12 @@ def main(argv=None) -> int:
     ptxas = [ln.strip() for ln in so.with_suffix(".log").read_text().splitlines()
              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     log({"phase": "build", "seconds": build_s, "library": so.name, "ptxas": ptxas})
+    if "--stripe-only" in argv:
+        # phase 15 alone
+        entry = stripe_phase(pt, torch.device("cuda"), np.random.default_rng(15),
+                             {"card": card, "warmup": WARMUP, "iters": ITERS})
+        print(json.dumps({"kernels": [entry]}), flush=True)
+        return 0
 
     # ---- phase 2: the main path through the facade, B = 131072
     rng = np.random.default_rng(0)
@@ -1623,10 +1791,13 @@ def main(argv=None) -> int:
     processes_phase(pt, rs_case, main, common)
     del main
 
+    # ---- phase 15: stripes (Codec.reconstruct, the stripe kernel)
+    stripe_entry = stripe_phase(pt, dev, np.random.default_rng(15), common)
+
     syn_entry.update(launches=syn_launches, max_abs_err=syn_err)
     log({"phase": "total", "seconds": time.perf_counter() - t_start, "card": card})
-    print(json.dumps({"kernels": [rs_entry, syn_entry, ldpc_entry, *probe_entries]}),
-          flush=True)
+    print(json.dumps({"kernels": [rs_entry, syn_entry, ldpc_entry, stripe_entry,
+                                  *probe_entries]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,11 @@
+"""stripe.kernels_per_call: device kernels launched a request in the
+stripe cell, counted in the profiled stretch (memory copies and memsets
+are not kernels): one stripe kernel a `Codec.reconstruct`, whatever its
+columns hold."""
+
+
+def read(ctx):
+    if ctx.trace is None or not ctx.stretch_requests:
+        return None
+    n = sum(1 for e in ctx.trace.device if e["cat"] == "kernel")
+    return {"value": n / ctx.stretch_requests} if n else None

@@ -5,7 +5,9 @@ names.  It imports torch and never jax.  So far it carries:
 
 - RS: configs and presets, GF(2^m) tables, RS encode, and the three RS
   decode paths (plain, erasure, external syndrome), whose decode runs
-  through a hand-written CUDA kernel (csrc/rs_decode.cu) on CUDA tensors;
+  through a hand-written CUDA kernel (csrc/rs_decode.cu) on CUDA tensors,
+  and the stripe decode (`Codec.reconstruct`: lost cells of shard-major
+  stripes rebuilt, one kernel launch on the card);
 - LDPC: the seeded parity-check structure and interleavers, encode, and
   min-sum BP decode, hard and soft, whose BP runs through a hand-written
   CUDA kernel (csrc/ldpc_bp.cu) on CUDA tensors;
@@ -54,7 +56,7 @@ from .config import (
     ldpc_config_burst_resistant,
     bch_config_default,
 )
-from .facade import Codec, DecodeResult, create
+from .facade import Codec, DecodeResult, ReconstructResult, create
 from .erasure import Erasure
 from .version import version_id, buildtime
 
@@ -71,6 +73,7 @@ __all__ = [
     "bch_config_default",
     "Codec",
     "DecodeResult",
+    "ReconstructResult",
     "create",
     "Erasure",
     "version_id",

@@ -152,6 +152,7 @@ def time_in_turns(kernel_fn, plain_fn, args):
 
 
 _PRELUDE = r"""
+#define PP_RS_STAMPED  // leaves out the stripe kernel, which the stamps do not reach
 __device__ unsigned long long pp_stamp_sum[16];
 extern "C" int pp_rs_stamps(void* host) {
   return (int)cudaMemcpyFromSymbol(host, pp_stamp_sum, sizeof(pp_stamp_sum));

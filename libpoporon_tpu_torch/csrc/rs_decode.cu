@@ -1,5 +1,6 @@
 // Reed-Solomon decode over GF(2^8) for Hopper: a syndrome kernel and a
-// decode kernel, one codeword per thread in each.
+// decode kernel, one codeword per thread in each, and a stripe kernel
+// that rebuilds lost cells of shard-major stripes (last in this file).
 //
 // Replaces libpoporon_tpu/models/rs_pallas.py `RSPallasDecoder._kernel`
 // in its three modes: plain, erasure and external syndrome (rs_pallas.py
@@ -557,6 +558,319 @@ cudaError_t launch_syndromes(const SynParams& p, cudaStream_t st) {
   return cudaGetLastError();
 }
 
+#ifndef PP_RS_STAMPED  // the stamped copy of rs_kernel.py --breakdown times the decode kernel alone
+
+// ------------------------------------------------------------------ stripes
+//
+// Rebuilds the lost cells of shard-major stripes: cells [n, L], byte t of
+// every cell one codeword (column t), with the same e cells lost in every
+// column, in one launch (`Codec.reconstruct`).  It computes, column for
+// column, what the erasure decode of the rows cells[:, t] with the lost
+// cells zeroed and named as erasures computes (models/rs.py
+// `_reconstruct`): ok, the count, and the lost cells' bytes of the
+// codeword it finds, each coefficient at its own location, parity cells
+// as well as data cells.  It
+// replaces no TPU kernel: the JAX package has no such entry, and the row
+// API would take two transposes of the group and an erasure list a row.
+//
+// What bounds it: HBM.  A column's n - e surviving bytes are read once
+// and e + 2 bytes written; at n = 14 that is a few operations a byte, far
+// under the card's integer rate.
+//
+// - The erasure-only columns take a map fixed by the pattern.  With every
+//   error among the erasures, BM leaves the erasure locator as it is (its
+//   discrepancies are the Forney syndromes T_r, r = e..nr-1, all zero), so
+//   Chien, Forney and the verify give the same roots, the same
+//   coefficients as a linear function of the syndromes, and a pass.  The
+//   host works that out once a pattern (models/rs_cuda.py
+//   `stripe_plan`), checks it on the e unit errors that span such
+//   columns, and packs, for each surviving cell, the map from its byte to
+//   the nr outputs (the e coefficients, the t-th that of the t-th lost
+//   cell named, then T_e..T_{nr-1}) as two 16-entry tables, low and high
+//   nibble, of 32-bit words (nr <= 4).  A column's outputs are the XOR of
+//   2 (n - e) lookups; a lost cell reads as zero, so its coefficient is
+//   its byte.
+// - Each block stages the tables once in shared memory, a copy of every
+//   entry for each lane, so that the 32 lanes' lookups fall in 32 banks;
+//   the blocks are persistent and walk the columns in chunks of 4,096, a
+//   thread 16 adjacent columns, read with one 16-byte load a surviving
+//   cell (coalesced: adjacent codewords are adjacent bytes) where L and
+//   the cells' address allow it, else a byte at a time, 256 columns apart.
+// - Any other column (T not zero: errors among the survivors) goes through
+//   the decode kernel's own steps, `locate_row`, `chien_sweep` and
+//   `finish_row`, on its bytes read again, a column a thread at a time and
+//   the warp's lanes together for the sweep, and the coefficients applied
+//   at their locations (finish_row's plain form).  So does every column
+//   where the plan cannot hold (nr > 4, tables past shared memory, or a
+//   pattern the check refuses).
+// - `failed` is counted here: a count a block, and the last block to end
+//   (by a ticket in `work`, reset by that block) sums them.  No second
+//   launch, no host sync.
+
+constexpr int kStripeThreads = 256;
+constexpr int kStripeCols = 16;          // columns a thread a chunk
+constexpr int kNibbleWords = 16 * 32;    // a nibble table: 16 entries, a copy a lane
+
+struct StripeParams {
+  const uint8_t* cells;      // [n, L], shard-major
+  const int32_t* lost;       // [e] lost cells, in the caller's order
+  const int32_t* surv;       // [n_surv] the other cells, ascending
+  const uint32_t* nibbles;   // [n_surv][2][16]: outputs of a low, a high nibble
+  const int32_t* tables;     // [4, 256]: log, antilog, sec, inv
+  uint8_t* rebuilt;          // [e, L]
+  uint8_t* ok_out;           // [L] bool
+  uint8_t* corrected_out;    // [L]
+  int32_t* failed_out;       // [] columns not ok
+  int32_t* work;             // [1 + grid]: the ticket, then a count a block
+  long long L;
+  int n, e, n_surv, nr, fcr, prim, prim_inv;
+  int fast;                  // 1: erasure-only columns take the tables
+  uint32_t tmask;            // output bytes e..nr-1: the Forney syndromes
+};
+
+// Shared memory before the tables: GF tables, va, lost, survivors, count.
+constexpr int kStripeFixedInts = 4 * 256 + 2 * kMaxRoots + 256 + 4;
+
+// The column's byte of slot c: 16 adjacent columns a thread (VEC), or
+// every kStripeThreads-th.
+template <bool VEC>
+__device__ __forceinline__ long long stripe_column(long long base, int c) {
+  return VEC ? base + threadIdx.x * kStripeCols + c
+             : base + (long long)c * kStripeThreads + threadIdx.x;
+}
+
+// acc ^= the outputs of byte x through a survivor's tables (lane's copies).
+__device__ __forceinline__ uint32_t nibble_map(const uint32_t* tab, uint32_t x) {
+  return tab[(x & 15) << 5] ^ tab[kNibbleWords + ((x >> 4 & 15) << 5)];
+}
+
+// The erasure-only map over the chunk's columns: writes their outputs and
+// returns the slots whose T is not zero (or whose column lies past L).
+template <bool VEC>
+__device__ __forceinline__ uint32_t stripe_map(const StripeParams& p, const int* surv,
+                                               const uint32_t* nib, long long base) {
+  const long long L = p.L;
+  uint32_t acc[kStripeCols];
+#pragma unroll
+  for (int c = 0; c < kStripeCols; ++c) acc[c] = 0;
+  uint32_t live = 0;
+  if (VEC) {
+    const long long col0 = stripe_column<true>(base, 0);
+    if (col0 >= L) return 0;  // L is a multiple of 16: the whole group or none
+    live = 0xFFFFu;
+    const uint8_t* src = p.cells + col0;
+    int r = 0;
+    for (; r + 4 <= p.n_surv; r += 4) {
+      uint4 v[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        v[q] = __ldcs(reinterpret_cast<const uint4*>(src + (long long)surv[r + q] * L));
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const uint32_t* tab = nib + (r + q) * 2 * kNibbleWords;
+        const uint32_t w[4] = {v[q].x, v[q].y, v[q].z, v[q].w};
+#pragma unroll
+        for (int c = 0; c < kStripeCols; ++c) acc[c] ^= nibble_map(tab, w[c >> 2] >> 8 * (c & 3));
+      }
+    }
+    for (; r < p.n_surv; ++r) {
+      const uint4 v = __ldcs(reinterpret_cast<const uint4*>(src + (long long)surv[r] * L));
+      const uint32_t* tab = nib + r * 2 * kNibbleWords;
+      const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int c = 0; c < kStripeCols; ++c) acc[c] ^= nibble_map(tab, w[c >> 2] >> 8 * (c & 3));
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < kStripeCols; ++c) {
+      const long long col = stripe_column<false>(base, c);
+      if (col >= L) continue;
+      live |= 1u << c;
+      for (int r = 0; r < p.n_surv; ++r)
+        acc[c] ^= nibble_map(nib + r * 2 * kNibbleWords, p.cells[(long long)surv[r] * L + col]);
+    }
+  }
+
+  // Outputs of every live slot; those of the slots returned are written
+  // again by stripe_errata, later in this thread.
+  const uint32_t emask = p.e >= 4 ? 0xFFFFFFFFu : (1u << 8 * p.e) - 1;
+  uint32_t todo = 0, count[kStripeCols];
+#pragma unroll
+  for (int c = 0; c < kStripeCols; ++c) {
+    if (acc[c] & p.tmask) todo |= 1u << c;
+    const uint32_t y = acc[c] & emask;
+    count[c] = __popc((((y & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | y) & 0x80808080u);
+  }
+  todo &= live;
+  if (VEC) {
+    const long long col0 = stripe_column<true>(base, 0);
+    for (int t = 0; t < p.e; ++t) {
+      const uint32_t sel = t | (t + 4) << 4;
+      uint32_t w[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        w[q] = __byte_perm(__byte_perm(acc[4 * q], acc[4 * q + 1], sel),
+                           __byte_perm(acc[4 * q + 2], acc[4 * q + 3], sel), 0x5410);
+      __stcs(reinterpret_cast<uint4*>(p.rebuilt + t * L + col0), make_uint4(w[0], w[1], w[2], w[3]));
+    }
+    uint32_t cw[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      cw[q] = count[4 * q] | count[4 * q + 1] << 8 | count[4 * q + 2] << 16 | count[4 * q + 3] << 24;
+    __stcs(reinterpret_cast<uint4*>(p.corrected_out + col0), make_uint4(cw[0], cw[1], cw[2], cw[3]));
+    const uint32_t one = 0x01010101u;
+    __stcs(reinterpret_cast<uint4*>(p.ok_out + col0), make_uint4(one, one, one, one));
+  } else {
+#pragma unroll
+    for (int c = 0; c < kStripeCols; ++c) {
+      if (!(live >> c & 1)) continue;
+      const long long col = stripe_column<false>(base, c);
+      for (int t = 0; t < p.e; ++t) p.rebuilt[t * L + col] = (uint8_t)(acc[c] >> 8 * t);
+      p.corrected_out[col] = (uint8_t)count[c];
+      p.ok_out[col] = 1;
+    }
+  }
+  return todo;
+}
+
+// The columns of `todo` through the decode kernel's steps 1 to 9, one a
+// thread at a time: the column's bytes read again, the lost cells as
+// zeros, its syndromes into a row of log-form syndromes, and `q`, the
+// kernel's parameters for a one-row batch of that row with the lost cells
+// as its erasures: located from the erasure locator, and corrected at the
+// roots' locations (the plain decode's apply), so that each lost cell
+// gets its own coefficient.  Every lane of the warp calls it and goes
+// round while any lane has a column left: the sweep is the warp's.
+// Returns the columns that are not ok.
+template <bool VEC>
+__device__ int stripe_errata(const StripeParams& p, const gf8::Tables& gf, const int* s_tab,
+                             const int* va, const int* lost, const int* ecount, uint32_t todo,
+                             long long base) {
+  const int n = p.n, nr = p.nr, e = p.e;
+  const long long L = p.L;
+  int failed = 0;
+  while (__any_sync(kFullWarp, todo != 0)) {
+    const bool have = todo != 0;
+    const long long col = stripe_column<VEC>(base, have ? __ffs(todo) - 1 : 0);
+    todo &= todo - 1;
+    uint8_t word[kFs], syn[kMaxRoots], lam[kMaxRoots + 1];
+    int32_t sl[kMaxRoots];
+    bool fine = true;
+    int deg = 0;
+    Params q;
+    if (have) {
+      for (int j = 0; j < n; ++j) word[j] = p.cells[j * L + col];
+      for (int t = 0; t < e; ++t) word[lost[t]] = 0;
+      // 1. S_i = sum_j r_j alpha^{va_i (n-1-j)}, in log form
+      for (int i = 0; i < nr; ++i) syn[i] = 0;
+      for (int j = 0; j < n; ++j) {
+        if (!word[j]) continue;
+        const int lx = gf.log[word[j]];
+        for (int i = 0; i < nr; ++i) syn[i] ^= gf.antilog[gf8::mod_fs(lx + va[i] * (n - 1 - j))];
+      }
+      for (int i = 0; i < nr; ++i) sl[i] = gf.log[syn[i]];
+      q.eras_pos = lost;
+      q.eras_cnt = ecount;
+      q.eras_width = e;
+      q.s_log = sl;
+      q.size = n - nr;
+      q.nr = nr;
+      q.fcr = p.fcr;
+      q.prim = p.prim;
+      q.prim_inv = p.prim_inv;
+      deg = locate_row<true>(q, gf, s_tab + 768, 0, syn, lam, &fine);
+    }
+    uint32_t hits[kSweepSteps];
+    chien_sweep(gf, lam, deg, hits);
+    if (have) {
+      int count = 0;
+      if (deg > 0)
+        fine = finish_row<false>(q, gf, s_tab + 512, s_tab + 768, va, syn, lam, deg, hits, word,
+                                 0, &count);
+      for (int t = 0; t < e; ++t) p.rebuilt[t * L + col] = word[lost[t]];
+      p.ok_out[col] = fine;
+      p.corrected_out[col] = (uint8_t)count;
+      failed += !fine;
+    }
+  }
+  return failed;
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(kStripeThreads, 4) rs_stripe_kernel(const StripeParams p) {
+  extern __shared__ __align__(16) int s_mem[];
+  int* s_tab = s_mem;                       // [4 * 256]
+  int* s_va = s_tab + 4 * 256;              // [kMaxRoots]
+  int* s_lost = s_va + kMaxRoots;           // [kMaxRoots]
+  int* s_surv = s_lost + kMaxRoots;         // [256]
+  int* s_count = s_surv + 256;              // [4]: e, the block's failed, last block
+  uint32_t* s_nib = reinterpret_cast<uint32_t*>(s_mem + kStripeFixedInts);  // [n_surv][2][16][32]
+
+  const int tid = threadIdx.x;
+  for (int i = tid; i < 4 * 256; i += kStripeThreads) s_tab[i] = p.tables[i];
+  for (int i = tid; i < p.nr; i += kStripeThreads) s_va[i] = ((p.fcr + i) * p.prim) % kFs;
+  for (int i = tid; i < p.e; i += kStripeThreads) s_lost[i] = p.lost[i];
+  for (int i = tid; i < p.n_surv; i += kStripeThreads) s_surv[i] = p.surv[i];
+  if (p.fast)
+    for (int i = tid; i < p.n_surv * 2 * kNibbleWords; i += kStripeThreads)
+      s_nib[i] = p.nibbles[i >> 5];  // entry i >> 5, in lane (i & 31)'s bank
+  if (tid == 0) {
+    s_count[0] = p.e;
+    s_count[1] = 0;
+  }
+  __syncthreads();
+
+  const gf8::Tables gf{s_tab, s_tab + 256};
+  const uint32_t* nib = s_nib + (tid & 31);
+  const long long per_chunk = (long long)kStripeThreads * kStripeCols;
+  const long long chunks = (p.L + per_chunk - 1) / per_chunk;
+  int failed = 0;
+  for (long long ch = blockIdx.x; ch < chunks; ch += gridDim.x) {
+    const long long base = ch * per_chunk;
+    uint32_t todo = 0;
+    if (p.fast) {
+      todo = stripe_map<VEC>(p, s_surv, nib, base);
+    } else {
+      for (int c = 0; c < kStripeCols; ++c)
+        if (stripe_column<VEC>(base, c) < p.L) todo |= 1u << c;
+    }
+    failed += stripe_errata<VEC>(p, gf, s_tab, s_va, s_lost, s_count, todo, base);
+  }
+
+  // failed: the block's sum, then the last block's sum of the blocks'
+  failed = __reduce_add_sync(kFullWarp, failed);
+  if ((tid & 31) == 0 && failed) atomicAdd(s_count + 1, failed);
+  __syncthreads();
+  if (tid == 0) {
+    p.work[1 + blockIdx.x] = s_count[1];
+    __threadfence();
+    s_count[2] = atomicAdd(p.work, 1) == (int)gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!s_count[2]) return;
+  __threadfence();
+  int sum = 0;
+  for (int i = tid; i < (int)gridDim.x; i += kStripeThreads)
+    sum += reinterpret_cast<volatile int32_t*>(p.work)[1 + i];
+  sum = __reduce_add_sync(kFullWarp, sum);
+  if (tid == 0) s_count[3] = 0;
+  __syncthreads();
+  if ((tid & 31) == 0) atomicAdd(s_count + 3, sum);
+  __syncthreads();
+  if (tid == 0) {
+    *p.failed_out = s_count[3];
+    p.work[0] = 0;  // the ticket, for the next launch on this stream
+  }
+}
+
+template <bool VEC>
+cudaError_t launch_stripe(const StripeParams& p, int smem, int grid, cudaStream_t st) {
+  rs_stripe_kernel<VEC><<<(unsigned)grid, kStripeThreads, smem, st>>>(p);
+  return cudaGetLastError();
+}
+
+#endif  // PP_RS_STAMPED
+
 }  // namespace
 
 // Writes the log-form syndromes s_log_out [B, nr] int32 (log[S_i], fs
@@ -636,3 +950,86 @@ extern "C" int pp_rs_decode(int erasure, const void* data, const void* parity,
     rs_decode_kernel<false><<<grid, kThreads, 0, st>>>(p);
   return (int)cudaGetLastError();
 }
+
+#ifndef PP_RS_STAMPED
+
+// Sets the stripe kernel (vec: its 16-byte form) up on `device` for the
+// nibble tables of n_surv surviving cells (fast 1) or for none (fast 0):
+// writes its dynamic shared bytes a block to *smem, lets it use all the
+// device's shared memory a block (so that a launch of any shape this
+// returned for stays valid), and returns how many of its blocks of *smem
+// bytes an SM holds; 0 where *smem passes the device's shared memory a
+// block, a negative cudaError_t on an error.
+extern "C" int pp_rs_stripe_blocks_per_sm(int n_surv, int fast, int vec, int device,
+                                          int* smem) {
+  *smem = kStripeFixedInts * 4 + (fast ? n_surv * 2 * kNibbleWords * 4 : 0);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return -(int)err;
+  int max_smem = 0;
+  err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return -(int)err;
+  if (*smem > max_smem) return 0;
+  const void* kern = vec ? reinterpret_cast<const void*>(rs_stripe_kernel<true>)
+                         : reinterpret_cast<const void*>(rs_stripe_kernel<false>);
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
+  if (err != cudaSuccess) return -(int)err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kStripeThreads, *smem);
+  return err != cudaSuccess ? -(int)err : per_sm;
+}
+
+// Rebuilds the lost cells of the shard-major cells [n, L]
+// (models/rs_cuda.py `RSCudaDecoder.reconstruct`) on `stream` (a
+// cudaStream_t) of `device`, in `grid` blocks of `smem` dynamic shared
+// bytes (pp_rs_stripe_blocks_per_sm first, for both); allocates nothing.  lost [e]
+// and surv [n - e] are the lost and the other cells; nibbles [n - e][2][16]
+// the plan's tables (read where fast is 1); tables the decode's [4, 256];
+// rebuilt [e, L], ok_out [L], corrected_out [L] and failed_out [] the
+// outputs; work [1 + grid] int32, zero at the first launch on a stream and
+// left so by each.  vec: L is a multiple of 16 and cells and the outputs
+// lie on 16 bytes.  Returns the launch's cudaError_t.
+extern "C" int pp_rs_stripe(const void* cells, const void* lost, const void* surv,
+                            const void* nibbles, const void* tables, void* rebuilt,
+                            void* ok_out, void* corrected_out, void* failed_out, void* work,
+                            int grid, int smem, long long L, int n, int e, int nr, int fcr,
+                            int prim, int prim_inv, int fast, unsigned tmask, int vec,
+                            int device, void* stream) {
+  const int n_surv = n - e;
+  if (L < 1 || nr < 1 || nr > kMaxRoots || n <= nr || n > kFs || e < 1 || e > nr ||
+      grid < 1 || (fast && nr > 4) ||
+      smem < kStripeFixedInts * 4 + (fast ? n_surv * 2 * kNibbleWords * 4 : 0))
+    return (int)cudaErrorInvalidValue;
+  const auto misaligned = [](const void* a) { return reinterpret_cast<uintptr_t>(a) % 16 != 0; };
+  if (vec && (L % kStripeCols || misaligned(cells) || misaligned(rebuilt) ||
+              misaligned(ok_out) || misaligned(corrected_out)))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return (int)set;
+
+  StripeParams p;
+  p.cells = static_cast<const uint8_t*>(cells);
+  p.lost = static_cast<const int32_t*>(lost);
+  p.surv = static_cast<const int32_t*>(surv);
+  p.nibbles = static_cast<const uint32_t*>(nibbles);
+  p.tables = static_cast<const int32_t*>(tables);
+  p.rebuilt = static_cast<uint8_t*>(rebuilt);
+  p.ok_out = static_cast<uint8_t*>(ok_out);
+  p.corrected_out = static_cast<uint8_t*>(corrected_out);
+  p.failed_out = static_cast<int32_t*>(failed_out);
+  p.work = static_cast<int32_t*>(work);
+  p.L = L;
+  p.n = n;
+  p.e = e;
+  p.n_surv = n_surv;
+  p.nr = nr;
+  p.fcr = fcr;
+  p.prim = prim;
+  p.prim_inv = prim_inv;
+  p.fast = fast;
+  p.tmask = tmask;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)(vec ? launch_stripe<true>(p, smem, grid, st)
+                   : launch_stripe<false>(p, smem, grid, st));
+}
+
+#endif  // PP_RS_STAMPED

@@ -45,6 +45,17 @@ class DecodeResult:
 
 
 @dataclasses.dataclass
+class ReconstructResult:
+    ok: torch.Tensor          # bool [L]
+    rebuilt: torch.Tensor     # uint8 [e, L], the lost cells in the order named
+    corrected: torch.Tensor   # uint8 [L]
+    failed: torch.Tensor      # int32 [], the columns not ok
+
+    def __iter__(self):
+        return iter((self.ok, self.rebuilt, self.corrected, self.failed))
+
+
+@dataclasses.dataclass
 class EncodeResult:
     data: torch.Tensor
     parity: torch.Tensor
@@ -162,6 +173,22 @@ class Codec:
                     res.ok[0], res.data[0], res.parity[0], res.corrected[0])
                 self.last_corrected = res.corrected
             return res
+
+    def reconstruct(self, cells, lost) -> ReconstructResult:
+        """Rebuild the lost cells of shard-major RS stripes, as storage
+        does after losing disks: cells uint8 [n, L] (data cells, then
+        num_roots parity cells; byte t of each cell is codeword t), lost
+        the 1..num_roots cells missing from every stripe, whose contents
+        are ignored.  Column for column: the ok and the count of `decode`
+        of that codeword with the lost cells zeroed and given as erasures,
+        and the lost cells' bytes, data and parity, of the codeword it
+        finds, in the order named (models/rs.py `RSCodec.reconstruct`).
+        On the card one kernel launch, whatever the columns hold."""
+        with span("poporon.facade.reconstruct"):
+            if self.fec_type != FecType.RS:
+                raise TypeError(f"reconstruct takes an RS configuration, not {self.fec_type.name}")
+            cells = as_tensor(cells, torch.uint8, self.device)
+            return ReconstructResult(*self._rs.reconstruct(cells, lost))
 
     def _decode_ldpc(self, data, parity, soft_llr) -> DecodeResult:
         c = self._ldpc

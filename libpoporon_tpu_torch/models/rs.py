@@ -398,12 +398,13 @@ class RSCodec:
             acc[:, j:] ^= prod
         return acc
 
-    def _correct(self, data, parity, s, eras_pos, eras_count, pad):
+    def _correct(self, data, parity, s, eras_pos, eras_count, pad, at_locations=False):
         """error_correction_u8 (decode.c:17-230), batched.
 
         eras_pos None selects the plain / external-syndrome form (no
         erasure locator, corrections at the Chien locations); otherwise
-        the erasure form (corrections at the caller's positions).
+        the erasure form (corrections at the caller's positions, or, with
+        at_locations, at the Chien locations as in the plain form).
         Returns (ok [B] bool, data, parity, corrected [B] int32).
         """
         B, size = data.shape
@@ -459,7 +460,7 @@ class RSCodec:
         fail_verify = (v != s).any(dim=1)
 
         # --- apply corrections ---
-        if erasure:
+        if erasure and not at_locations:
             # decode.c:211-214: coeff_j at the caller's j-th erasure
             # position, data region only.  Slots past E read position 0
             # (masked only by jvalid), as in the XLA path.
@@ -530,6 +531,65 @@ class RSCodec:
         s = torch.where(in_range, self.log2exp[s_log.clamp(0, fs).long()], 0)
         out = self._correct(data, parity, s, None, None, pad)
         return self._finish(has_err, data, parity, *out)
+
+    def _reconstruct(self, cells, lost):
+        """The stripe decode's plain version: the rows of cells.T with the
+        lost cells zeroed, through the erasure decode with `lost` as every
+        row's erasures (`_decode_erasure`), its corrections applied at
+        their locations."""
+        n, L = cells.shape
+        k, dev = n - self.num_roots, cells.device
+        idx = torch.tensor(lost, dtype=torch.long, device=dev)
+        words = cells.t().contiguous()              # [L, n], a codeword a row
+        words[:, idx] = 0
+        data, parity = words[:, :k], words[:, k:]
+        pos = idx.to(torch.int32)[None].expand(L, len(lost))
+        cnt = torch.full((L,), len(lost), dtype=torch.int32, device=dev)
+        s = self._syndrome(data, parity)
+        out = self._correct(data, parity, s, pos, cnt, self.fs - n, at_locations=True)
+        ok, data, parity, corrected = self._finish((s != 0).any(dim=1), data, parity, *out)
+        rebuilt = torch.cat([data, parity], dim=1)[:, idx].t().contiguous()
+        return ok, rebuilt, corrected.to(torch.uint8), (~ok).sum(dtype=torch.int32)
+
+    def reconstruct(self, cells, lost):
+        """Rebuild lost cells of shard-major stripes.
+
+        cells: uint8 [n, L], byte t of each cell one codeword (column t):
+        the first n - nr cells data, the last nr parity, nr < n <= fs.
+        lost: 1..nr distinct cell indices, the same in every column; the
+        contents of those cells are ignored (read as zero).  Moved to the
+        codec's device.
+
+        Returns (ok bool [L], rebuilt uint8 [e, L] in `lost`'s order,
+        corrected uint8 [L], failed int32 [], the columns not ok): column
+        for column the ok and the count of `decode(cells[:k, t],
+        cells[k:, t], erasures=lost)` with the lost cells zeroed, and the
+        lost cells' bytes of the codeword that decode finds, data and
+        parity cells alike, each correction at its own location: the
+        cells' true bytes wherever the survivors hold at most
+        (nr - e) / 2 errors.  A column that is not ok comes back as given,
+        its lost cells zero; so does one whose syndromes are zero, whose
+        lost cells are zero indeed.  (The row decode's erasure form puts
+        its t-th correction on the t-th erasure named, data cells only,
+        decode.c:211-214; here each lands where its root says.)  One
+        launch of the stripe kernel on the card.
+        """
+        with span("poporon.codec.reconstruct"):
+            cells = as_tensor(cells, torch.uint8, self.device)
+            if cells.ndim != 2:
+                raise ValueError(f"cells must be [n, L], got {tuple(cells.shape)}")
+            n = cells.shape[0]
+            if not self.num_roots < n <= self.fs:
+                raise ValueError(f"{n} cells: a codeword of {self.num_roots} roots "
+                                 f"needs {self.num_roots + 1}..{self.fs}")
+            lost = tuple(int(x) for x in lost)
+            if not 0 < len(lost) <= self.num_roots or len(set(lost)) != len(lost) \
+                    or not all(0 <= x < n for x in lost):
+                raise ValueError(f"lost must be 1..{self.num_roots} distinct cells of "
+                                 f"0..{n - 1}, got {lost}")
+            if self.kernel is not None:
+                return self.kernel.reconstruct(cells, lost)
+            return self._reconstruct(cells, lost)
 
     def decode(self, data, parity, erasures=None, ext_syndrome=None):
         """Batched decode.

@@ -3,23 +3,157 @@
 Counterpart of libpoporon_tpu/models/rs_pallas.py.  Two kernels serve the
 plain, erasure and external-syndrome decode paths: a syndrome kernel
 (bit-sliced, from the column table `syndrome_columns`) and a decode
-kernel that starts from log-form syndromes.  For a CUDA tensor the
-wrapper launches the kernels (and raises if a launch fails); for a CPU
-tensor it runs their plain PyTorch version (models/rs.py).  The kernels
-take any batch size, masking the ragged last block themselves, so no
-host-side padding is needed.
+kernel that starts from log-form syndromes.  A third, the stripe kernel,
+rebuilds the lost cells of shard-major stripes (`reconstruct`) from a
+plan worked out on the host once a loss pattern (`stripe_plan`); the JAX
+package has no counterpart.  For a CUDA tensor the wrapper launches the
+kernels (and raises if a launch fails); for a CPU tensor it runs their
+plain PyTorch version (models/rs.py).  The kernels take any batch size,
+masking the ragged last block themselves, so no host-side padding is
+needed.
 """
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
+import functools
+import operator
+
+import numpy as np
 import torch
 
 from ..utils import build
+from ..utils.cache import LruCache
 from ..utils.profiling import span
 from ..utils.tensors import checked
 
 MODE_PLAIN, MODE_ERASURE, MODE_EXT = 0, 1, 2
 MAX_ROOTS = 64       # the kernel's per-thread arrays
+FS = 255             # the kernels' field: GF(2^8)
+
+STRIPE_CHUNK = 256 * 16        # columns a stripe kernel's block takes at a time
+
+
+@dataclasses.dataclass(frozen=True)
+class StripePlan:
+    """What the stripe kernel needs of a loss pattern (`stripe_plan`).
+
+    fast: the erasure-only columns take the tables (where the card's
+    shared memory holds them); else every column takes the
+    errors-and-erasures path.  nibbles: uint32 [n - e, 2, 16], for
+    survivor surv[r] and each value v of its low (0) and high (1) nibble,
+    the outputs of that byte packed a byte each: the coefficients of the
+    e lost cells, in the order named, then the Forney syndromes
+    T_e..T_{nr-1}.  tmask covers the Forney syndromes' bytes."""
+
+    lost: tuple[int, ...]
+    surv: tuple[int, ...]
+    fast: bool
+    nibbles: np.ndarray
+    tmask: int
+    arrays: torch.Tensor | None = None   # on the card: lost, surv, nibbles (int32)
+    pointers: tuple[int, ...] = ()       # their addresses
+
+
+def _xor(values) -> int:
+    return functools.reduce(operator.xor, values, 0)
+
+
+def stripe_plan(tables: np.ndarray, nr: int, fcr: int, prim: int, prim_inv: int,
+                n: int, lost: tuple[int, ...]) -> StripePlan:
+    """The stripe kernel's plan for codewords of n symbols (shortened from
+    255) whose symbols `lost` are erased and zero, from the kernel's GF
+    tables [4, 256] (log, antilog, sec, inv).
+
+    The decode of such a column (decode.c:17-230 as models/rs.py
+    `_correct` has it, erasure form) starts BM from the erasure locator
+    el, skipping the trips it <= e, so its discrepancies are the Forney
+    syndromes T_r = sum_{l <= min(deg, r)} el_l S_{r-l}, r = e..nr-1.
+    Where they are all zero BM changes nothing, and Chien, Forney and the
+    verify see the same locator in every such column: fixed roots, and
+    coefficients coef_t = num_t(S) sec[r_t] inv[den_t], linear in S.
+    Both T and coef are linear in the column's bytes (S is), and are the
+    outputs the tables pack, each coefficient in the slot of the lost cell
+    at its root's location; a lost cell reads as zero, so its coefficient
+    is its byte.  The plan is checked on the unit errors at the e lost
+    cells, whose syndromes span the columns where T is zero: each must
+    give T = 0 and pass the verify; a pattern where that, or Chien finding
+    one root at each lost cell, or the erasure terms' 16-bit wrap leaving
+    them exact, fails is not fast."""
+    log, alog, sec, inv = ([int(v) for v in row] for row in np.asarray(tables))
+    e, pad = len(lost), FS - n
+    surv = tuple(j for j in range(n) if j not in lost)
+
+    def mul(a, b):
+        return 0 if a == 0 or b == 0 else alog[(log[a] + log[b]) % FS]
+
+    def mul_alpha(a, x):
+        return 0 if a == 0 else alog[(log[a] + x) % FS]
+
+    def dot(row, vec):
+        return _xor(mul(a, b) for a, b in zip(row, vec))
+
+    va = [((fcr + i) * prim) % FS for i in range(nr)]
+    # S_i's coefficient of symbol j
+    H = [[alog[(va[i] * (n - 1 - j)) % FS] for j in range(n)] for i in range(nr)]
+    # the erasure locator as locate_row builds it, wrap of erasure_term included
+    raw = [prim * (n - 1 - q) for q in lost]
+    el = [1] + [0] * nr
+    for i, r in enumerate(raw):
+        term = alog[(r & 0xFFFF) % FS]
+        for j in range(min(i + 1, nr), 0, -1):
+            el[j] ^= mul(term, el[j - 1])
+    deg = max(j for j in range(nr + 1) if el[j])
+    # Chien over every point, in scan order, as chien_sweep
+    roots = [i for i in range(1, FS + 1)
+             if _xor(mul_alpha(el[j], (j * i) % FS) for j in range(1, deg + 1)) == 1]
+    at = {(i * prim_inv - 1) % FS - pad: i for i in roots}   # cell -> its root
+    fast = (nr <= 4 and max(raw) < 1 << 16 and deg == e == len(roots)
+            and sorted(at) == sorted(lost))
+    if fast:     # the roots in the order the lost cells are named
+        roots = [at[q] for q in lost]
+    locs = [(i * prim_inv - 1) % FS for i in roots]
+
+    # rows over S: the Forney syndromes, Omega (degree < deg), the coefficients
+    forney = []
+    for r in range(e, nr):
+        row = [0] * nr
+        for l in range(min(deg, r) + 1):
+            row[r - l] ^= el[l]
+        forney.append(row)
+    coef = []
+    if fast:
+        omega = []
+        for i in range(deg):
+            row = [0] * nr
+            for l in range(i + 1):
+                row[i - l] ^= el[l]
+            omega.append(row)
+        for r in roots:
+            num = [_xor(mul_alpha(omega[i][s], (i * r) % FS) for i in range(deg))
+                   for s in range(nr)]
+            den = _xor(mul_alpha(el[j], ((j - 1) * r) % FS) for j in range(1, deg + 1, 2))
+            c = mul(sec[r], inv[den])
+            coef.append([mul(x, c) for x in num])
+        for q in lost:          # the unit error at each lost symbol
+            su = [H[i][q] for i in range(nr)]
+            cu = [dot(row, su) for row in coef]
+            verify = [_xor(mul_alpha(cu[t], (va[i] * (FS - 1 - locs[t])) % FS)
+                           for t in range(e)) for i in range(nr)]
+            fast &= not any(dot(row, su) for row in forney) and verify == su
+
+    nibbles = np.zeros((len(surv), 2, 16), dtype=np.uint32)
+    if fast:
+        out = [[dot(row, [H[s][j] for s in range(nr)]) for j in range(n)]
+               for row in coef + forney]
+        for r, j in enumerate(surv):
+            for h in range(2):
+                for v in range(16):
+                    nibbles[r, h, v] = sum(mul(out[b][j], v << 4 * h) << 8 * b
+                                           for b in range(nr))
+    return StripePlan(lost=tuple(lost), surv=surv, fast=bool(fast), nibbles=nibbles,
+                      tmask=sum(0xFF << 8 * b for b in range(e, min(nr, 4))))
 
 
 def column_words(nr: int) -> int:
@@ -55,9 +189,10 @@ class RSCudaDecoder:
     """rs_decode (plain / erasure / external-syndrome) as CUDA kernels.
 
     A plain or erasure decode is two launches (syndromes, then decode), an
-    external-syndrome decode one.  `launches` counts every kernel launch,
-    `syndrome_launches` those of the syndrome kernel, so that a run can
-    show that its decodes went through the kernels.
+    external-syndrome decode one, a stripe decode (`reconstruct`) one.
+    `launches` counts every kernel launch, `syndrome_launches` those of
+    the syndrome kernel and `stripe_launches` those of the stripe kernel,
+    so that a run can show that its decodes went through the kernels.
     """
 
     @staticmethod
@@ -82,9 +217,14 @@ class RSCudaDecoder:
         self.rs = rs
         self.launches = 0
         self.syndrome_launches = 0
+        self.stripe_launches = 0
         # [4, 256] int32 on the codec's device: log, antilog, sec, inv
         self.tables = torch.stack(
             [rs.exp2log, rs.log2exp, rs.sec_tbl, rs.inv_tbl]).contiguous()
+        self._host_tables = self.tables.cpu().numpy()
+        self._plans = LruCache(capacity=16)   # (n, lost) -> StripePlan, arrays on the card
+        self._work = {}                       # (card, stream) -> the stripe kernel's ticket
+        self._shapes = {}                     # (card, n_surv, fast, vec) -> its launch shape
         # [fs, 8, W] int32 on the codec's device
         self.columns = syndrome_columns(rs.G_syn, rs.num_roots)
 
@@ -115,6 +255,98 @@ class RSCudaDecoder:
         if data.device.type == "cpu":
             return self.rs._decode_ext_syndrome(data, parity, s_log)
         return self._launch(MODE_EXT, data, parity, s_log=s_log)
+
+    def reconstruct(self, cells, lost: tuple[int, ...]):
+        """The stripe decode of shard-major cells uint8 [n, L] whose cells
+        `lost` (distinct indices, 1..nr of them) are lost: (ok bool [L],
+        rebuilt uint8 [e, L], corrected uint8 [L], failed int32 []) as
+        models/rs.py `RSCodec._reconstruct` gives them.  One launch of the
+        stripe kernel for a CUDA tensor, the plain version for a CPU one."""
+        if cells.device.type == "cpu":
+            return self.rs._reconstruct(cells, lost)
+        with span("poporon.launch.rs_stripe"):
+            rs = self.rs
+            dev = cells.device
+            if dev != self.tables.device:
+                raise ValueError(f"cells on {dev}, the codec's tables on {self.tables.device}")
+            n, L = cells.shape
+            cells = checked(cells, torch.uint8, (n, L), dev)
+            plan = self._stripe_plan(n, tuple(lost))
+            e = len(lost)
+            rebuilt = torch.empty(e, L, dtype=torch.uint8, device=dev)
+            ok = torch.empty(L, dtype=torch.bool, device=dev)
+            corrected = torch.empty(L, dtype=torch.uint8, device=dev)
+            if L == 0:
+                return ok, rebuilt, corrected, torch.zeros((), dtype=torch.int32, device=dev)
+            failed = torch.empty((), dtype=torch.int32, device=dev)
+            vec = L % 16 == 0 and all(t.data_ptr() % 16 == 0
+                                      for t in (cells, rebuilt, ok, corrected))
+            blocks, smem, fast = self._stripe_shape(dev, len(plan.surv), plan.fast, vec)
+            work = self._stripe_work(dev, blocks)
+            grid = min(blocks, -(-L // STRIPE_CHUNK))
+            with torch.cuda.device(dev):
+                rc = build.load_library().pp_rs_stripe(
+                    cells.data_ptr(), *plan.pointers, self.tables.data_ptr(),
+                    rebuilt.data_ptr(), ok.data_ptr(), corrected.data_ptr(), failed.data_ptr(),
+                    work.data_ptr(), grid, smem, L, n, e, rs.num_roots, rs.fcr, rs.prim,
+                    rs.prim_inv, int(fast), plan.tmask, int(vec), *self._stream(dev))
+            if rc != 0:
+                raise RuntimeError(f"rs_stripe kernel launch failed: CUDA error {rc}")
+            self.launches += 1
+            self.stripe_launches += 1
+            return ok, rebuilt, corrected, failed
+
+    def _stripe_plan(self, n: int, lost: tuple[int, ...]) -> StripePlan:
+        """The plan of a loss pattern with its arrays on the card, int32
+        [lost, surv, nibbles] (`arrays`, `pointers` to the three), built
+        once a pattern."""
+        def build_plan():
+            rs = self.rs
+            plan = stripe_plan(self._host_tables, rs.num_roots, rs.fcr, rs.prim,
+                               rs.prim_inv, n, lost)
+            flat = np.concatenate([np.asarray(plan.lost, dtype=np.int32),
+                                   np.asarray(plan.surv, dtype=np.int32),
+                                   plan.nibbles.reshape(-1).view(np.int32)])
+            arrays = torch.from_numpy(flat).to(self.tables.device)
+            base = arrays.data_ptr()
+            return dataclasses.replace(
+                plan, arrays=arrays, pointers=(base, base + 4 * len(lost), base + 4 * n))
+
+        return self._plans.get_or_build((n, lost), build_plan)
+
+    def _stripe_shape(self, dev, n_surv: int, fast: bool, vec: bool):
+        """The stripe kernel's launch on `dev` for n_surv surviving cells:
+        (blocks the card holds at once, dynamic shared bytes a block,
+        whether the erasure-only columns take the tables), from the
+        library, which sizes the shared memory and asks the occupancy
+        calculator, once a shape.  Tables past the card's shared memory
+        a block leave every column to the errors-and-erasures path."""
+        card = dev.index or 0
+        key = (card, n_surv, fast, vec)
+        if key not in self._shapes:
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            smem = ctypes.c_int(0)
+            with torch.cuda.device(dev):
+                per_sm = build.load_library().pp_rs_stripe_blocks_per_sm(
+                    n_surv, int(fast), int(vec), card, ctypes.addressof(smem))
+            if per_sm == 0 and fast:
+                self._shapes[key] = self._stripe_shape(dev, n_surv, False, vec)
+            elif per_sm < 1:
+                raise RuntimeError(f"rs_stripe kernel: {per_sm} blocks an SM at "
+                                   f"{smem.value} B of shared memory")
+            else:
+                self._shapes[key] = (sms * per_sm, smem.value, fast)
+        return self._shapes[key]
+
+    def _stripe_work(self, dev, blocks: int) -> torch.Tensor:
+        """The stripe kernel's ticket and per-block counts, int32 [1 +
+        blocks] at least, on the current stream of `dev`: zeroed when made,
+        and left at zero by every launch, so that launches on one stream,
+        which run in turn, share it."""
+        key = (dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+        if key not in self._work or self._work[key].numel() < 1 + blocks:
+            self._work[key] = torch.zeros(1 + blocks, dtype=torch.int32, device=dev)
+        return self._work[key]
 
     def _rows(self, data, parity):
         """data and parity checked for the kernels: CUDA tensors on the

@@ -37,6 +37,14 @@ SIGNATURES = {
     # batch, size, nr, fcr, prim, prim_inv, device, stream
     "pp_rs_decode": [_I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
                      _I, _I, _I, _I, _I, _I, _I, _P],
+    # cells, lost, surv, nibbles, tables, rebuilt, ok_out, corrected_out,
+    # failed_out, work, grid, smem, L, n, e, nr, fcr, prim, prim_inv, fast,
+    # tmask, vec, device, stream
+    "pp_rs_stripe": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_longlong,
+                     _I, _I, _I, _I, _I, _I, _I, ctypes.c_uint, _I, _I, _P],
+    # n_surv, fast, vec, device, smem out (returns blocks per SM, 0 past
+    # the device's shared memory, or a negative cudaError_t)
+    "pp_rs_stripe_blocks_per_sm": [_I, _I, _I, _I, _P],
     # mode, in, chan, graph, out, ok_out, iters_out, counter, batch, V, P,
     # E, runs, dv, has_src, max_iter, shared_graph, groups, threads, grid,
     # device, stream
