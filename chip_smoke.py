@@ -12,7 +12,8 @@ each slice of the port:
   B = 131072 codewords (encode, flip 2 symbols per row, decode), checks
   that the decode went through both RS kernels (a plain decode is two
   launches: the syndrome kernel, then the decode kernel), holds the
-  syndrome kernel and the decode in all three modes against their plain
+  syndrome kernel (also alone at 1 and 33 roots, the ends of its
+  factoring) and the decode in all three modes against their plain
   PyTorch versions on the card (rows within and past the code's
   capacity, erasures with extra errors, so that BM runs long with
   nonzero discrepancies), and times both; then the decode on the
@@ -205,8 +206,8 @@ def syndrome_timing(kern, kernel_fn, plain_fn, args, common):
     """Phase 4, the syndrome kernel alone at B = BATCH on the main path's
     rows (`rs_kernel.calls`): equal to its plain version, then timed plain,
     kernel, kernel, plain.  Its bound: per row `syndrome_ops`, and the row
-    read and nr int32 logs written, plus the column table and log table
-    once.  Returns the `rs_syndrome` entry of the kernels line, less
+    read and nr int32 logs written, plus the division and tail tables
+    and the log table once.  Returns the `rs_syndrome` entry of the kernels line, less
     launches and max_abs_err."""
     import torch
     from libpoporon_tpu_torch.benchmarks.rs_kernel import time_in_turns
@@ -216,11 +217,11 @@ def syndrome_timing(kern, kernel_fn, plain_fn, args, common):
     ms, plain_ms = sum(t_kern) / 2, sum(t_plain) / 2
     d, p = args
     nr, n = p.shape[1], d.shape[1] + p.shape[1]
-    b = bound(BATCH * (n + 4 * nr) + kern.columns.numel() * 4 + 256 * 4,
+    b = bound(BATCH * (n + 4 * nr) + kern.syndrome_tables.numel() * 4 + 256 * 4,
               BATCH * syndrome_ops(nr, n))
     log({"bench": "rs_syndrome", "kernel_ms": ms, "plain_ms": plain_ms,
          "kernel_runs_ms": t_kern, "plain_runs_ms": t_plain,
-         "kernel_codewords_per_s": BATCH / ms * 1e3, "column_table_bytes": kern.columns.numel() * 4,
+         "kernel_codewords_per_s": BATCH / ms * 1e3, "table_bytes": kern.syndrome_tables.numel() * 4,
          **b, "share_of_bound": b["bound_ms"] / ms, **common})
     return {"name": "rs_syndrome", "route": "cuda",
             "source": "libpoporon_tpu_torch/csrc/rs_decode.cu",
@@ -1670,6 +1671,23 @@ def main(argv=None) -> int:
             for extra in ((nr - E) // 2, (nr - E) // 2 + 1):
                 be, pos, cnt = erasure_case(rng, d, E, extra)
                 compare(f"{name} erasure E={E}+{extra} B={B}", rs_, "erasure", be, p, pos, cnt)
+    # the syndrome kernel alone at the ends of its adaptation: nr = 1 (one
+    # factor, 15 bytes of its divisor a power of x) and nr = 33 (three
+    # factors, one copy of T), beside nr = 16 (one factor, eight copies)
+    # and nr = 64 (four factors, one copy) above
+    for nr in (1, 33):
+        rs_ = RSCodec(pt.RSConfig(num_roots=nr), dev)
+        check(rs_.kernel is not None, f"nr{nr}: no kernel")
+        for B, size in ((4096, rs_.k), (1, rs_.k), (1000, 1), (1000, 100)):
+            d = rng.integers(0, 256, (B, size), dtype=np.uint8)
+            p = rs_.encode(d).cpu().numpy()
+            nerr = rng.integers(0, nr // 2 + 2, B)
+            nerr[: B // 8] = 0
+            bd, bp = corrupt(rng, d, p, nerr, B // 16)
+            bd_t, bp_t = torch.as_tensor(bd, device=dev), torch.as_tensor(bp, device=dev)
+            compare_syndromes(f"nr{nr} B={B} size={size}", rs_, bd_t, bp_t)
+            if B > 1:
+                compare_syndromes(f"nr{nr} B={B - 1} size={size} view", rs_, bd_t[1:], bp_t[1:])
     log({"phase": "kernel_vs_plain", "cases": cases, "max_abs_err": max_err,
          "syndrome_cases": syn_cases, "syndrome_max_abs_err": syn_err})
     # ROADMAP F8: 0x11B (x of order 51) passes GF's check, but its log

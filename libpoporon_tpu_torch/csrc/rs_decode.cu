@@ -17,17 +17,40 @@
 // row; H100 80GB HBM3, 700 W), so the syndromes were two thirds of the
 // plain decode.
 //
-// Syndromes, bit-sliced.  S is linear over GF(2) in the word's bits: row
-// q*8 + b of G_syn (models/rs.py) is the syndrome contribution of bit b
-// (MSB first) of full-length position q.  The wrapper packs those rows
-// into a column table [fs][8][W] of 32-bit words (models/rs_cuda.py
-// `syndrome_columns`); the block stages it in shared memory, and each
-// thread XORs the columns of its word's set bits into W accumulators.
-// Every lane of a warp reads the column of the same symbol at once, so the
-// 16-byte table loads are broadcasts; there is no serial chain and no
-// table gather.  What bounds it: 8W XORs a bit (2,040 bits a codeword),
-// integer issue, not HBM (255 + 4 nr bytes a codeword).
-//
+// Syndromes, a division by g(x) a byte a step.  S_i = r(b_i), with r(x)
+// the row's polynomial and b_i = alpha^((fcr + i) prim) a root of g(x), so
+// S_i is also the remainder of r modulo any multiple of x - b_i, evaluated
+// at b_i.  The kernel splits the roots into factors of 16 (F = ceil(nr /
+// 16)) and divides each row by h_f(x) = x^(16 - r_f) g_f(x), monic of
+// degree 16, keeping each remainder in four registers: a step per symbol
+// takes the top byte, shifts the words up a byte with the symbol entering
+// byte 0 (three funnel shifts and a byte permute) and XORs in T_f[top], one
+// 16-byte table load a factor.  Leading zeros leave a remainder as it is,
+// so a shortened row costs its own length.  The tail evaluates each
+// remainder at its factor's roots from nibble tables (32 lookups a factor)
+// and writes log[S_i] (models/rs_cuda.py `syndrome_tables` builds T and
+// the tails; tests/test_torch_rs_syndrome.py emulates this loop against
+// the JAX syndromes).  What bounds it: integer issue, about 10 ALU
+// instructions a step and factor (against 100 a symbol for the bit-sliced
+// loop it replaces), issued at half rate, so about 10 cycles an SM a warp
+// and symbol at nr = 32; then shared-memory bandwidth, 8 wavefronts a warp
+// and symbol (8 KB of T a row); not HBM (255 + 4 nr bytes a codeword).  At
+// B = 131072, nr = 32 (H100 80GB HBM3, 700 W): 0.082 ms, from 0.240 for
+// the bit-sliced kernel; clock64() stamps split a tile's cycles 74%
+// division, 13% tail, 10% logs out.
+// - Two factors hold two independent chains a thread (each step's address
+//   waits on the last step's load).
+// - The lookups of T are data-dependent.  Where they fit (nr <= 32), T
+//   holds 8 copies of each entry, lane l of each 8-lane phase of a 16-byte
+//   load reading copy l mod 8, so that the eight fall in distinct banks
+//   whatever the tops; else one copy.
+// - Persistent blocks, one an SM, stage the tables once and take tiles of
+//   256 rows in turn.  A tile's rows come in packed, as they lie in device
+//   memory, by cp.async into one of two buffers while the block divides
+//   the other tile's, and a thread reads its row a word at a time with a
+//   funnel shift.  The tile's logs go back over its buffer as bytes, and
+//   out as int32 with 16-byte stores.
+
 // Decode.  What bounds it: for rows with errors, BM, Chien over the 255
 // points, Forney and verify, each GF product two shared-memory table loads
 // and a few integer ops, on state in local memory; not HBM (67 to 84 MB
@@ -36,8 +59,8 @@
 //   block, grid ceil(B / 128); the ragged last block is masked here, so
 //   the host pads nothing.
 // - The block stages its 128 rows (data, then parity) into shared memory
-//   with coalesced 16-byte loads (`stage_rows`, as the syndrome kernel
-//   does), each thread decodes its own row in place, and the block copies
+//   with coalesced 16-byte loads (`stage_rows`), each thread decodes its
+//   own row in place, and the block copies
 //   the rows back with coalesced byte stores: the counterpart of
 //   the in-kernel transposes at rs_pallas.py:176-187 and 494-505.  Rows are
 //   260 bytes apart (65 words), so the threads of a warp reading symbol j
@@ -462,100 +485,221 @@ __global__ void __launch_bounds__(kThreads) rs_decode_kernel(const Params p) {
 
 // ---------------------------------------------------------------- syndromes
 
-constexpr int kSynThreads = 128;  // codewords per block of the syndrome kernel
+constexpr int kSynThreads = 256;   // codewords a tile, and threads a block, of the syndrome kernel
+constexpr int kFactorRoots = 16;   // roots of g(x) a factor: a remainder of 16 bytes
+constexpr int kTailEntries = kFactorRoots * 2 * 16;   // the tail's nibble tables, 16 bytes an entry
+constexpr int kFactorEntries = 256 + kTailEntries;    // a factor's entries: T, then the tail
+constexpr int kCopies = 8;         // copies of T, a lane of each 8-lane phase its own
+// A tile's buffer: its data rows, then its parity rows, each packed as in
+// device memory from the 16-byte boundary at or below its first byte, with
+// room for that head, the last 16 bytes and a word read past a row's end.
+constexpr int kSynBuffer = kSynThreads * kFs + 96;
 
 struct SynParams {
   const uint8_t* data;    // [B, size]
   const uint8_t* parity;  // [B, nr]
-  const uint4* columns;   // [fs][8][W] 32-bit words (syndrome_columns)
+  const uint4* tables;    // [F][kFactorEntries] (models/rs_cuda.py syndrome_tables)
   const int32_t* log;     // [256] value -> log, log[0] = fs
   int32_t* s_log_out;     // [B, nr]
   int batch, size, nr;
+  int copies;             // 1 or kCopies
 };
 
-// XORs into acc the columns of the set bits of the symbol in sym's low
-// byte (bit 7 first, as G_syn's rows); `col` is the symbol's [8][W] words.
-// Every lane reads the same column: broadcasts.
-template <int W>
-__device__ __forceinline__ void add_symbol(uint32_t (&acc)[W], const uint4* col,
-                                           uint32_t sym) {
-#pragma unroll
-  for (int b = 0; b < 8; ++b) {
-    const uint32_t m = 0u - ((sym >> (7 - b)) & 1u);
-#pragma unroll
-    for (int v = 0; v < W / 4; ++v) {
-      const uint4 t = col[b * (W / 4) + v];
-      acc[4 * v] ^= t.x & m;
-      acc[4 * v + 1] ^= t.y & m;
-      acc[4 * v + 2] ^= t.z & m;
-      acc[4 * v + 3] ^= t.w & m;
-    }
-  }
+// Dynamic shared bytes of a block: T (copies of each entry), the tails, a
+// byte log table, two tile buffers.
+constexpr int syndrome_smem(int factors, int copies) {
+  return factors * (256 * copies + kTailEntries) * 16 + 256 + 2 * kSynBuffer;
 }
 
-template <int W>
-constexpr int syndrome_smem() {
-  return kFs * 8 * W * 4 + 256 * 4 + kSynThreads * kRowStride;
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"((unsigned)__cvta_generic_to_shared(dst)), "l"(src) : "memory");
 }
 
-// One thread per codeword: S = the XOR of the table columns of the word's
-// set bits.  Accumulator byte i (little-endian over the W words) is S_i,
-// by the table's bit order; thread writes log[S_i] over its staged row,
-// and the block copies the rows out.
-template <int W>
-__global__ void __launch_bounds__(kSynThreads) rs_syndrome_kernel(const SynParams p) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  uint4* s_col = reinterpret_cast<uint4*>(smem);                // [fs][8][W]
-  int* s_logt = reinterpret_cast<int*>(smem + kFs * 8 * W * 4);  // [256]
-  uint8_t* s_rows = smem + kFs * 8 * W * 4 + 256 * 4;           // [rows][260]
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
 
-  const int tid = threadIdx.x;
-  const long long row0 = (long long)blockIdx.x * kSynThreads;
+// Waits for this thread's copies but those of the last group committed.
+__device__ __forceinline__ void cp_async_wait_all_but_last() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Starts the copy of the 16-byte words that hold src[0, bytes) to dst, a
+// word a thread at a time: src[0] lands at dst + (src mod 16).
+__device__ __forceinline__ void stage_async(const uint8_t* src, long long bytes, uint8_t* dst) {
+  const uintptr_t a0 = reinterpret_cast<uintptr_t>(src) & ~uintptr_t(15);
+  const uintptr_t a1 = (reinterpret_cast<uintptr_t>(src) + bytes + 15) & ~uintptr_t(15);
+  const int words = (int)((a1 - a0) >> 4);
+  for (int i = threadIdx.x; i < words; i += kSynThreads)
+    cp_async16(dst + 16 * i, reinterpret_cast<const void*>(a0 + 16 * i));
+}
+
+// Where a tile's parity rows start in its buffer.
+__device__ __forceinline__ int parity_base(int size) {
+  return (kSynThreads * size + 47) & ~15;
+}
+
+// Starts the copy of tile `tile`'s rows into buf.
+__device__ __forceinline__ void stage_tile(const SynParams& p, long long tile, uint8_t* buf) {
+  const long long row0 = tile * kSynThreads;
   const long long left = p.batch - row0;
   const int rows = left < kSynThreads ? (int)left : kSynThreads;
-  const int size = p.size, nr = p.nr, n = size + nr;
+  stage_async(p.data + row0 * p.size, (long long)rows * p.size, buf);
+  stage_async(p.parity + row0 * p.nr, (long long)rows * p.nr, buf + parity_base(p.size));
+}
 
-  for (int i = tid; i < kFs * 2 * W; i += kSynThreads) s_col[i] = p.columns[i];
-  for (int i = tid; i < 256; i += kSynThreads) s_logt[i] = p.log[i];
-  stage_rows<kSynThreads>(p.data + row0 * size, size, rows, s_rows, 0);
-  stage_rows<kSynThreads>(p.parity + row0 * nr, nr, rows, s_rows, size);
-  __syncthreads();
-
-  if (tid < rows) {
-    const uint8_t* word = s_rows + tid * kRowStride;
-    const uint4* col = s_col + (kFs - n) * 2 * W;  // column of symbol 0
-    uint32_t acc[W] = {};
-    int j = 0;
-    for (; j + 4 <= n; j += 4) {
-      const uint32_t x = *reinterpret_cast<const uint32_t*>(word + j);
+// One step of the division of every factor's remainder R (byte b of the
+// four words the coefficient of x^b) by its h_f: R = x R + v - top h_f,
+// v the symbol in byte e of x (sel = 0x6540 | e), top R's x^15 byte.  T
+// holds top (h_f - x^16) at entry f * 256 + top, `copies` apart.
+template <int F>
+__device__ __forceinline__ void divide_step(uint32_t (&R)[F][4], const uint4* t, int copies,
+                                            uint32_t x, uint32_t sel) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) add_symbol<W>(acc, col + (j + e) * 2 * W, x >> (8 * e));
-    }
-    for (; j < n; ++j) add_symbol<W>(acc, col + j * 2 * W, word[j]);
-    int32_t* out = reinterpret_cast<int32_t*>(s_rows + tid * kRowStride);
-#pragma unroll
-    for (int i = 0; i < 4 * W; ++i)
-      if (i < nr) out[i] = s_logt[(acc[i >> 2] >> (8 * (i & 3))) & 0xFF];
-  }
-  __syncthreads();
-
-  // a warp a row, coalesced
-  int32_t* dst = p.s_log_out + row0 * nr;
-  for (int r = tid >> 5; r < rows; r += kSynThreads / 32) {
-    const int32_t* src = reinterpret_cast<const int32_t*>(s_rows + r * kRowStride);
-    for (int c = tid & 31; c < nr; c += 32) dst[r * nr + c] = src[c];
+  for (int f = 0; f < F; ++f) {
+    const uint32_t top = R[f][3] >> 24;
+    R[f][3] = __funnelshift_l(R[f][2], R[f][3], 8);
+    R[f][2] = __funnelshift_l(R[f][1], R[f][2], 8);
+    R[f][1] = __funnelshift_l(R[f][0], R[f][1], 8);
+    R[f][0] = __byte_perm(x, R[f][0], sel);
+    const uint4 v = t[(f * 256 + (int)top) * copies];
+    R[f][0] ^= v.x;
+    R[f][1] ^= v.y;
+    R[f][2] ^= v.z;
+    R[f][3] ^= v.w;
   }
 }
 
-template <int W>
-cudaError_t launch_syndromes(const SynParams& p, cudaStream_t st) {
-  constexpr int smem = syndrome_smem<W>();
-  const cudaError_t set = cudaFuncSetAttribute(
-      rs_syndrome_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (set != cudaSuccess) return set;
-  const dim3 grid((unsigned)((p.batch + kSynThreads - 1) / kSynThreads));
-  rs_syndrome_kernel<W><<<grid, kSynThreads, smem, st>>>(p);
-  return cudaGetLastError();
+// Divides by the remainders the `len` symbols at `row` in shared memory
+// (any alignment), read a word at a time from the word at or below it.
+template <int F>
+__device__ __forceinline__ void divide_row(uint32_t (&R)[F][4], const uint4* t, int copies,
+                                           const uint8_t* row, int len) {
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(reinterpret_cast<uintptr_t>(row) & ~uintptr_t(3));
+  const uint32_t sh = 8 * (reinterpret_cast<uintptr_t>(row) & 3);
+  uint32_t lo = w[0];
+  int j = 0;
+  for (; j + 4 <= len; j += 4) {
+    const uint32_t hi = w[(j >> 2) + 1];
+    const uint32_t x = __funnelshift_r(lo, hi, sh);  // row[j .. j + 3]
+    lo = hi;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) divide_step<F>(R, t, copies, x, 0x6540u | e);
+  }
+  const uint32_t x = __funnelshift_r(lo, w[(j >> 2) + 1], sh);
+  for (int e = 0; j < len; ++j, ++e) divide_step<F>(R, t, copies, x >> (8 * e), 0x6540u);
+}
+
+// Persistent blocks, one thread a codeword: each block stages the tables
+// once, then takes tiles of kSynThreads rows in turn, the next tile's rows
+// copied in (cp.async) while this one's are divided.  A thread divides its
+// row by the F factors of g(x), a byte a step, then evaluates each
+// remainder at the factor's roots with the tail's nibble tables: S_{16f+j}
+// is byte j of factor f's sum.  The block then writes the tile's log[S_i]
+// as bytes over its buffer and copies them out as int32, 16 bytes a
+// thread.
+template <int F>
+__global__ void __launch_bounds__(kSynThreads, 1) rs_syndrome_kernel(const SynParams p) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int copies = p.copies;
+  uint4* s_t = reinterpret_cast<uint4*>(smem);                   // [F][256][copies]
+  uint4* s_tail = s_t + F * 256 * copies;                         // [F][16][2][16]
+  uint8_t* s_logt = reinterpret_cast<uint8_t*>(s_tail + F * kTailEntries);  // [256]
+  uint8_t* s_buf = s_logt + 256;                                  // [2][kSynBuffer]
+
+  const int tid = threadIdx.x;
+  const long long tiles = (p.batch + kSynThreads - 1) / kSynThreads;
+  if (blockIdx.x < tiles) stage_tile(p, blockIdx.x, s_buf);
+  cp_async_commit();
+  for (int i = tid; i < F * 256 * copies; i += kSynThreads) {
+    const int e = i / copies;  // entry f * 256 + v
+    s_t[i] = p.tables[(e >> 8) * kFactorEntries + (e & 255)];
+  }
+  for (int i = tid; i < F * kTailEntries; i += kSynThreads)
+    s_tail[i] = p.tables[(i / kTailEntries) * kFactorEntries + 256 + i % kTailEntries];
+  for (int i = tid; i < 256; i += kSynThreads) s_logt[i] = (uint8_t)p.log[i];
+
+  const int size = p.size, nr = p.nr;
+  const uint4* t = s_t + (tid & (copies - 1));  // the lane's copy
+  int k = 0;
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x, k ^= 1) {
+    uint8_t* buf = s_buf + k * kSynBuffer;
+    if (tile + gridDim.x < tiles) stage_tile(p, tile + gridDim.x, s_buf + (k ^ 1) * kSynBuffer);
+    cp_async_commit();
+    cp_async_wait_all_but_last();
+    __syncthreads();  // this tile's rows (and, the first time, the tables) in
+
+    const long long row0 = tile * kSynThreads;
+    const long long left = p.batch - row0;
+    const int rows = left < kSynThreads ? (int)left : kSynThreads;
+    uint32_t L[F][4] = {};  // log[S_{16f + 4q + c}] in byte c of L[f][q]
+    if (tid < rows) {
+      const int dhead = (int)(reinterpret_cast<uintptr_t>(p.data + row0 * size) & 15);
+      const int phead = (int)(reinterpret_cast<uintptr_t>(p.parity + row0 * nr) & 15);
+      uint32_t R[F][4] = {};
+      divide_row<F>(R, t, copies, buf + dhead + tid * size, size);
+      divide_row<F>(R, t, copies, buf + parity_base(size) + phead + tid * nr, nr);
+#pragma unroll
+      for (int f = 0; f < F; ++f) {
+        const uint4* tail = s_tail + f * kTailEntries;
+        uint32_t acc[4] = {};
+#pragma unroll
+        for (int b = 0; b < kFactorRoots; ++b) {
+          const uint32_t byte = R[f][b >> 2] >> (8 * (b & 3));
+          const uint4 lo = tail[2 * b * 16 + (byte & 15)];
+          const uint4 hi = tail[(2 * b + 1) * 16 + ((byte >> 4) & 15)];
+          acc[0] ^= lo.x ^ hi.x;
+          acc[1] ^= lo.y ^ hi.y;
+          acc[2] ^= lo.z ^ hi.z;
+          acc[3] ^= lo.w ^ hi.w;
+        }
+#pragma unroll
+        for (int c = 0; c < kFactorRoots; ++c)
+          L[f][c >> 2] |= (uint32_t)s_logt[(acc[c >> 2] >> (8 * (c & 3))) & 0xFF] << (8 * (c & 3));
+      }
+    }
+    __syncthreads();  // every row read: the buffer takes the logs, [rows][nr] bytes
+
+    if (tid < rows) {
+      uint8_t* out = buf + tid * nr;
+      if ((nr & 3) == 0) {
+#pragma unroll
+        for (int q = 0; q < 4 * F; ++q)
+          if (4 * q < nr) reinterpret_cast<uint32_t*>(out)[q] = L[q >> 2][q & 3];
+      } else {
+#pragma unroll
+        for (int c = 0; c < 16 * F; ++c)
+          if (c < nr) out[c] = (uint8_t)(L[c >> 4][(c >> 2) & 3] >> (8 * (c & 3)));
+      }
+    }
+    __syncthreads();
+
+    // the tile's logs as int32, 16 bytes a thread where the output allows
+    int32_t* dst = p.s_log_out + row0 * nr;
+    const int total = rows * nr;
+    int done = 0;
+    if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+      done = total & ~3;
+      for (int i = 4 * tid; i < done; i += 4 * kSynThreads) {
+        const uint32_t w = *reinterpret_cast<const uint32_t*>(buf + i);
+        *reinterpret_cast<int4*>(dst + i) =
+            make_int4((int)(w & 0xFF), (int)(w >> 8 & 0xFF), (int)(w >> 16 & 0xFF), (int)(w >> 24));
+      }
+    }
+    for (int i = done + tid; i < total; i += kSynThreads) dst[i] = buf[i];
+    __syncthreads();  // the buffer read out: the next tile but one may fill it
+  }
+}
+
+// The syndrome kernel for nr roots: F = ceil(nr / 16) factors.
+inline const void* syndrome_kernel(int nr) {
+  switch ((nr + kFactorRoots - 1) / kFactorRoots) {
+    case 1: return reinterpret_cast<const void*>(rs_syndrome_kernel<1>);
+    case 2: return reinterpret_cast<const void*>(rs_syndrome_kernel<2>);
+    case 3: return reinterpret_cast<const void*>(rs_syndrome_kernel<3>);
+    default: return reinterpret_cast<const void*>(rs_syndrome_kernel<4>);
+  }
 }
 
 #ifndef PP_RS_STAMPED  // the stamped copy of rs_kernel.py --breakdown times the decode kernel alone
@@ -873,33 +1017,64 @@ cudaError_t launch_stripe(const StripeParams& p, int smem, int grid, cudaStream_
 
 }  // namespace
 
+// Sets the syndrome kernel up on `device` for nr roots: writes its copies
+// of T (kCopies where they fit a block's shared memory, so that the lanes'
+// lookups of T fall in distinct banks, else 1) to *copies and its dynamic
+// shared bytes a block to *smem, lets it use all the device's shared
+// memory, and returns how many of its blocks an SM holds; a negative
+// cudaError_t on an error.
+extern "C" int pp_rs_syndrome_shape(int nr, int device, int* copies, int* smem) {
+  if (nr < 1 || nr > kMaxRoots) return -(int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return -(int)err;
+  int max_smem = 0;
+  err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return -(int)err;
+  const void* kern = syndrome_kernel(nr);
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
+  if (err != cudaSuccess) return -(int)err;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return -(int)err;
+  const int factors = (nr + kFactorRoots - 1) / kFactorRoots;
+  *copies = syndrome_smem(factors, kCopies) <= max_smem ? kCopies : 1;
+  *smem = syndrome_smem(factors, *copies);
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kSynThreads, *smem);
+  return err != cudaSuccess ? -(int)err : per_sm;
+}
+
 // Writes the log-form syndromes s_log_out [B, nr] int32 (log[S_i], fs
 // where S_i = 0: the decode's s_log) of the rows data [B, size] | parity
-// [B, nr] on `stream` (a cudaStream_t) of `device`; allocates nothing.
-// `columns` is the [fs][8][words] table of models/rs_cuda.py
-// `syndrome_columns` for this nr (words = 4, 8 or 16, at least nr / 4),
-// `tables` the decode's [4, 256] (log first).  Returns the launch's
+// [B, nr] on `stream` (a cudaStream_t) of `device`, in `grid` blocks of
+// `smem` dynamic shared bytes with `copies` copies of T
+// (pp_rs_syndrome_shape first, for all three); allocates nothing.
+// `tables` is models/rs_cuda.py `syndrome_tables` for this config,
+// `log_tables` the decode's [4, 256] (log first).  Returns the launch's
 // cudaError_t.
-extern "C" int pp_rs_syndrome(const void* data, const void* parity, const void* columns,
-                              const void* tables, void* s_log_out, int batch, int size,
-                              int nr, int words, int device, void* stream) {
-  if (batch < 1 || size < 1 || nr < 1 || nr > kMaxRoots || size + nr > kFs ||
-      (words != 4 && words != 8 && words != 16) || 4 * words < nr)
+extern "C" int pp_rs_syndrome(const void* data, const void* parity, const void* tables,
+                              const void* log_tables, void* s_log_out, int batch, int size,
+                              int nr, int copies, int grid, int smem, int device, void* stream) {
+  if (batch < 1 || size < 1 || nr < 1 || nr > kMaxRoots || size + nr > kFs || grid < 1 ||
+      (copies != 1 && copies != kCopies) ||
+      smem < syndrome_smem((nr + kFactorRoots - 1) / kFactorRoots, copies))
     return (int)cudaErrorInvalidValue;
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
   const SynParams p = {static_cast<const uint8_t*>(data),
                        static_cast<const uint8_t*>(parity),
-                       static_cast<const uint4*>(columns),
-                       static_cast<const int32_t*>(tables),
+                       static_cast<const uint4*>(tables),
+                       static_cast<const int32_t*>(log_tables),
                        static_cast<int32_t*>(s_log_out),
-                       batch, size, nr};
+                       batch, size, nr, copies};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (words) {
-    case 4: return (int)launch_syndromes<4>(p, st);
-    case 8: return (int)launch_syndromes<8>(p, st);
-    default: return (int)launch_syndromes<16>(p, st);
+  switch ((nr + kFactorRoots - 1) / kFactorRoots) {
+    case 1: rs_syndrome_kernel<1><<<grid, kSynThreads, smem, st>>>(p); break;
+    case 2: rs_syndrome_kernel<2><<<grid, kSynThreads, smem, st>>>(p); break;
+    case 3: rs_syndrome_kernel<3><<<grid, kSynThreads, smem, st>>>(p); break;
+    default: rs_syndrome_kernel<4><<<grid, kSynThreads, smem, st>>>(p); break;
   }
+  return (int)cudaGetLastError();
 }
 
 // Launches the decode on `stream` (a cudaStream_t) of `device`; allocates

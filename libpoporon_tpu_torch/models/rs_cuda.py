@@ -2,10 +2,11 @@
 
 Counterpart of libpoporon_tpu/models/rs_pallas.py.  Two kernels serve the
 plain, erasure and external-syndrome decode paths: a syndrome kernel
-(bit-sliced, from the column table `syndrome_columns`) and a decode
-kernel that starts from log-form syndromes.  A third, the stripe kernel,
-rebuilds the lost cells of shard-major stripes (`reconstruct`) from a
-plan worked out on the host once a loss pattern (`stripe_plan`); the JAX
+(each row divided by the factors of g(x) a byte a step, from the tables of
+`syndrome_tables`) and a decode kernel that starts from log-form
+syndromes.  A third, the stripe kernel, rebuilds the lost cells of
+shard-major stripes (`reconstruct`) from a plan worked out on the host
+once a loss pattern (`stripe_plan`); the JAX
 package has no counterpart.  For a CUDA tensor the wrapper launches the
 kernels (and raises if a launch fails); for a CPU tensor it runs their
 plain PyTorch version (models/rs.py).  The kernels take any batch size,
@@ -33,6 +34,7 @@ MAX_ROOTS = 64       # the kernel's per-thread arrays
 FS = 255             # the kernels' field: GF(2^8)
 
 STRIPE_CHUNK = 256 * 16        # columns a stripe kernel's block takes at a time
+SYNDROME_TILE = 256            # rows a syndrome kernel's block takes at a time
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,33 +158,52 @@ def stripe_plan(tables: np.ndarray, nr: int, fcr: int, prim: int, prim_inv: int,
                       tmask=sum(0xFF << 8 * b for b in range(e, min(nr, 4))))
 
 
-def column_words(nr: int) -> int:
-    """32-bit words a bit row of the column table: the syndrome kernel's
-    buckets, 4, 8 or 16 for nr <= 16, 32 or 64."""
-    if not 0 < nr <= MAX_ROOTS:
-        raise ValueError(f"nr {nr} outside 1..{MAX_ROOTS}")
-    return 4 if nr <= 16 else 8 if nr <= 32 else 16
+FACTOR_ROOTS = 16    # roots of g(x) a factor: the syndrome kernel's remainders are 16 bytes
+FACTOR_ENTRIES = 256 + FACTOR_ROOTS * 2 * 16   # a factor's 16-byte entries: T, then the tail
 
 
-def syndrome_columns(G_syn: torch.Tensor, nr: int) -> torch.Tensor:
-    """The syndrome kernel's column table, int32 [fs, 8, W] on G_syn's
-    device, W = column_words(nr).
+def syndrome_tables(exp2log, log2exp, nr: int, fcr: int, prim: int) -> np.ndarray:
+    """The syndrome kernel's tables, uint8 [F, FACTOR_ENTRIES, 16], F =
+    ceil(nr / 16), from the field's log and antilog tables.
 
-    Entry [q, b] is row q*8 + b of G_syn [fs*8, nr*8] (the syndrome bits
-    contributed by bit b, MSB first, of full-length position q), packed so
-    that the W words, read as little-endian bytes, hold S_0 .. S_{nr-1}:
-    G_syn[q*8 + b, 8*i + c] (bit c of S_i, MSB first) is bit
-    8*(i % 4) + 7 - c of word i // 4.  Words past nr's bytes are zero.
-    """
-    W = column_words(nr)
-    fs = G_syn.shape[0] // 8
-    g = G_syn.to(torch.int64).reshape(fs, 8, nr, 8)             # [q, b, i, c]
-    g = torch.nn.functional.pad(g, (0, 0, 0, 4 * W - nr))        # i up to 4W
-    g = g.reshape(fs, 8, W, 4, 8)                                # i = 4w + k
-    k = torch.arange(4, device=g.device)[:, None]
-    c = torch.arange(8, device=g.device)[None, :]
-    words = (g << (8 * k + 7 - c)).sum(dim=(-2, -1))            # [fs, 8, W]
-    return torch.where(words >= 1 << 31, words - (1 << 32), words).to(torch.int32)
+    S_i = r(b_i), b_i = alpha^((fcr + i) prim), r(x) the row's polynomial
+    (its first symbol the highest power), and g(b_i) = 0, so S_i is also
+    the remainder of r modulo any multiple of x - b_i, evaluated at b_i.
+    Factor f takes the roots i = 16 f .. 16 f + r_f - 1 (r_f <= 16) and
+    divides by h_f(x) = x^(16 - r_f) prod (x - b_i), monic of degree 16:
+    the kernel keeps r mod h_f in 16 bytes, byte b the coefficient of x^b.
+    Entries 0..255 of factor f are T_f[v] = v (h_f(x) - x^16), byte b the
+    coefficient of x^b: a step with top byte v adds T_f[v].  Entry
+    256 + (2 b + h) 16 + u is the tail's: byte j the product of the
+    nibble value u << 4h at byte b of the remainder by b_{16f+j}^b, for
+    j < r_f, and zero past it; the XOR of the entries of the remainder's
+    32 nibbles is S_{16f}..S_{16f+r_f-1}."""
+    log = np.asarray(exp2log, dtype=np.int64)
+    alog = np.asarray(log2exp, dtype=np.int64)
+    fs = len(alog) - 1
+
+    def mul(a, b):
+        a, b = np.broadcast_arrays(np.asarray(a, np.int64), np.asarray(b, np.int64))
+        return np.where((a == 0) | (b == 0), 0, alog[(log[a] + log[b]) % fs])
+
+    va = [((fcr + i) * prim) % fs for i in range(nr)]
+    factors = -(-nr // FACTOR_ROOTS)
+    out = np.zeros((factors, FACTOR_ENTRIES, 16), dtype=np.uint8)
+    for f in range(factors):
+        roots = va[FACTOR_ROOTS * f:FACTOR_ROOTS * (f + 1)]
+        h = np.zeros(FACTOR_ROOTS + 1, dtype=np.int64)     # ascending powers of x
+        h[FACTOR_ROOTS - len(roots)] = 1
+        for e in roots:                                     # h *= x + b_i
+            h = np.concatenate([[0], h[:-1]]) ^ mul(h, alog[e])
+        v = np.arange(256)
+        out[f, :256] = mul(v[:, None], h[None, :FACTOR_ROOTS])
+        u = np.arange(16)
+        for b in range(FACTOR_ROOTS):
+            powers = alog[[(e * b) % fs for e in roots]]    # b_i^b
+            for half in range(2):
+                at = 256 + (2 * b + half) * 16
+                out[f, at:at + 16, :len(roots)] = mul((u << 4 * half)[:, None], powers[None, :])
+    return out
 
 
 class RSCudaDecoder:
@@ -225,8 +246,11 @@ class RSCudaDecoder:
         self._plans = LruCache(capacity=16)   # (n, lost) -> StripePlan, arrays on the card
         self._work = {}                       # (card, stream) -> the stripe kernel's ticket
         self._shapes = {}                     # (card, n_surv, fast, vec) -> its launch shape
-        # [fs, 8, W] int32 on the codec's device
-        self.columns = syndrome_columns(rs.G_syn, rs.num_roots)
+        self._syndrome_shapes = {}            # card -> the syndrome kernel's launch shape
+        # int32 [F, FACTOR_ENTRIES, 4] on the codec's device (syndrome_tables)
+        self.syndrome_tables = torch.from_numpy(syndrome_tables(
+            rs.exp2log.cpu(), rs.log2exp.cpu(), rs.num_roots, rs.fcr, rs.prim
+        ).view(np.int32)).to(rs.exp2log.device)
 
     def supports_erasure(self, E: int) -> bool:
         """Erasure lists 1..num_roots wide ride the kernel."""
@@ -366,18 +390,39 @@ class RSCudaDecoder:
     def _stream(dev):
         return dev.index or 0, torch.cuda.current_stream(dev).cuda_stream
 
+    def _syndrome_shape(self, dev):
+        """The syndrome kernel's launch on `dev`: (blocks the card holds at
+        once, copies of T, dynamic shared bytes a block), from the library,
+        which picks the copies and asks the occupancy calculator, once a
+        card."""
+        card = dev.index or 0
+        if card not in self._syndrome_shapes:
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            copies, smem = ctypes.c_int(0), ctypes.c_int(0)
+            with torch.cuda.device(dev):
+                per_sm = build.load_library().pp_rs_syndrome_shape(
+                    self.rs.num_roots, card, ctypes.addressof(copies), ctypes.addressof(smem))
+            if per_sm < 1:
+                raise RuntimeError(f"rs_syndrome kernel: {per_sm} blocks an SM at "
+                                   f"{smem.value} B of shared memory")
+            self._syndrome_shapes[card] = (sms * per_sm, copies.value, smem.value)
+        return self._syndrome_shapes[card]
+
     def _syndromes(self, data, parity):
         with span("poporon.launch.rs_syndrome"):
             rs = self.rs
+            dev = data.device
             B, size = data.shape
-            s_log = torch.empty(B, rs.num_roots, dtype=torch.int32, device=data.device)
+            s_log = torch.empty(B, rs.num_roots, dtype=torch.int32, device=dev)
             if B == 0:
                 return s_log
-            with torch.cuda.device(data.device):   # the launcher sets the device
+            blocks, copies, smem = self._syndrome_shape(dev)
+            grid = min(blocks, -(-B // SYNDROME_TILE))
+            with torch.cuda.device(dev):   # the launcher sets the device
                 rc = build.load_library().pp_rs_syndrome(
-                    data.data_ptr(), parity.data_ptr(), self.columns.data_ptr(),
+                    data.data_ptr(), parity.data_ptr(), self.syndrome_tables.data_ptr(),
                     self.tables.data_ptr(), s_log.data_ptr(), B, size, rs.num_roots,
-                    self.columns.shape[2], *self._stream(data.device))
+                    copies, grid, smem, *self._stream(dev))
         if rc != 0:
             raise RuntimeError(f"rs_syndrome kernel launch failed: CUDA error {rc}")
         self.launches += 1

@@ -1,13 +1,17 @@
-"""The RS syndrome kernel's column table against the JAX package.
+"""The RS syndrome kernel's tables and loop against the JAX package.
 
-`syndrome_columns` (libpoporon_tpu_torch/models/rs_cuda.py) packs the
-rows of G_syn for the bit-sliced syndrome kernel in csrc/rs_decode.cu.
-Here a NumPy emulation of that kernel's loop (four symbols a little-endian
-32-bit read, bit 7 first, the masked columns XORed into W accumulators,
-accumulator byte i read as S_i) must give the JAX package's
-`RSCodec._syndrome` exactly, over the configs chip_smoke.py holds the
-kernel to on the card; and `RSCudaDecoder.syndromes` on CPU tensors (the
-kernel's plain version) must give its log form.  Tolerance: exact.
+`syndrome_tables` (libpoporon_tpu_torch/models/rs_cuda.py) packs, for
+each factor of g(x) of up to 16 roots, the division table T and the
+tail's nibble tables of the syndrome kernel in csrc/rs_decode.cu.  Here a
+NumPy emulation of that kernel's loop (four symbols a little-endian 32-bit
+read; a factor's remainder in four 32-bit words, byte b the coefficient of
+x^b; a step takes the top byte, shifts the words up a byte with the
+symbol entering byte 0 and XORs in T[top]; the tail XORs the entries of
+the remainder's 32 nibbles, accumulator byte j read as S_{16f+j}) must
+give the JAX package's `RSCodec._syndrome` exactly, over the configs
+chip_smoke.py holds the kernel to on the card; and
+`RSCudaDecoder.syndromes` on CPU tensors (the kernel's plain version) must
+give its log form.  Tolerance: exact.
 """
 
 import numpy as np
@@ -22,7 +26,8 @@ from libpoporon_tpu.models.rs import RSCodec as JaxRSCodec  # noqa: E402
 
 from libpoporon_tpu_torch.config import RSConfig  # noqa: E402
 from libpoporon_tpu_torch.models.rs import RSCodec  # noqa: E402
-from libpoporon_tpu_torch.models.rs_cuda import column_words, syndrome_columns  # noqa: E402
+from libpoporon_tpu_torch.models.rs_cuda import (  # noqa: E402
+    FACTOR_ENTRIES, FACTOR_ROOTS, syndrome_tables)
 
 torch.set_num_threads(2)
 
@@ -76,30 +81,49 @@ def _case(name, which):
     return _CASES[key]
 
 
-def emulate_kernel(columns: np.ndarray, nr: int, word: np.ndarray) -> np.ndarray:
+def _words(tab: np.ndarray) -> np.ndarray:
+    """Table entries [..., 16] bytes as the kernel's four little-endian
+    32-bit words (a uint4's x, y, z, w)."""
+    return np.ascontiguousarray(tab).view("<u4")
+
+
+def emulate_kernel(tables: np.ndarray, nr: int, word: np.ndarray) -> np.ndarray:
     """rs_syndrome_kernel's loop in NumPy over the rows of word [B, n]
-    (data then parity): normal-domain syndromes [B, nr]."""
-    fs, _, W = columns.shape
+    (data then parity), from the int32 tables [F, FACTOR_ENTRIES, 4]:
+    normal-domain syndromes [B, nr]."""
+    tab = tables.view(np.uint32)
+    F = tab.shape[0]
     rows, n = word.shape
-    cols = columns.view(np.uint32)
-    pad = fs - n
-    acc = np.zeros((rows, W), np.uint32)
+    R = np.zeros((rows, F, 4), np.uint32)
     padded = np.zeros((rows, (n + 3) // 4 * 4), np.uint8)
     padded[:, :n] = word
 
-    def add_symbol(q, sym):
-        for b in range(8):
-            bit = (sym >> np.uint32(7 - b)) & np.uint32(1)
-            acc[...] ^= cols[q, b][None, :] & (np.uint32(0) - bit)[:, None]
+    def step(x, e):
+        """divide_step: symbol byte e of x enters every factor's remainder."""
+        for f in range(F):
+            top = R[:, f, 3] >> np.uint32(24)
+            for w in (3, 2, 1):       # __funnelshift_l(R[w - 1], R[w], 8)
+                R[:, f, w] = (R[:, f, w] << np.uint32(8)) | (R[:, f, w - 1] >> np.uint32(24))
+            v = (x >> np.uint32(8 * e)) & np.uint32(0xFF)   # __byte_perm(x, R0, 0x6540 | e)
+            R[:, f, 0] = (R[:, f, 0] << np.uint32(8)) | v
+            R[:, f] ^= tab[f, top]
 
     for j in range(0, n - n % 4, 4):
         x = padded[:, j:j + 4].copy().view("<u4")[:, 0]
         for e in range(4):
-            add_symbol(pad + j + e, x >> np.uint32(8 * e))
+            step(x, e)
     for j in range(n - n % 4, n):
-        add_symbol(pad + j, word[:, j].astype(np.uint32))
-    syn = acc.view("<u1").reshape(rows, 4 * W)
-    return syn[:, :nr].astype(np.int32)
+        step(word[:, j].astype(np.uint32), 0)
+
+    syn = np.zeros((rows, F * 16), np.int32)
+    for f in range(F):
+        acc = np.zeros((rows, 4), np.uint32)
+        for b in range(FACTOR_ROOTS):
+            byte = (R[:, f, b // 4] >> np.uint32(8 * (b % 4))) & np.uint32(0xFF)
+            acc ^= tab[f, 256 + 2 * b * 16 + (byte & 15)]
+            acc ^= tab[f, 256 + (2 * b + 1) * 16 + (byte >> 4)]
+        syn[:, 16 * f:16 * f + 16] = acc.view("<u1").reshape(rows, 16)
+    return syn[:, :nr]
 
 
 @pytest.mark.parametrize("which", range(4))
@@ -107,8 +131,8 @@ def emulate_kernel(columns: np.ndarray, nr: int, word: np.ndarray) -> np.ndarray
 def test_emulated_kernel_loop_matches_jax_syndromes(name, which):
     rs, _ = _codecs(name)
     data, parity, want = _case(name, which)
-    columns = rs.kernel.columns.numpy()
-    got = emulate_kernel(columns, rs.num_roots, np.concatenate([data, parity], axis=1))
+    tables = rs.kernel.syndrome_tables.numpy()
+    got = emulate_kernel(tables, rs.num_roots, np.concatenate([data, parity], axis=1))
     assert got.shape == want.shape == (B, rs.num_roots)
     assert np.array_equal(got, want)
 
@@ -126,20 +150,73 @@ def test_syndromes_plain_version_is_log_of_jax(name):
         assert (got[12:] != 255).any(dim=1).all()
 
 
-@pytest.mark.parametrize("nr, W", [(10, 4), (16, 4), (20, 8), (32, 8), (33, 16), (64, 16)])
-def test_column_table_layout(nr, W):
-    """Shape, dtype, byte size, the pinned bit order (G_syn[q*8 + b,
-    8*i + c] is bit 8*(i % 4) + 7 - c of word i // 4) and zero words past
-    the nr syndrome bytes."""
+def _gf(rs):
+    log = rs.exp2log.numpy().astype(np.int64)
+    alog = rs.log2exp.numpy().astype(np.int64)
+
+    def mul(a, b):
+        return 0 if a == 0 or b == 0 else int(alog[(log[a] + log[b]) % 255])
+
+    return mul, alog
+
+
+def _poly_mul(mul, a, b):
+    out = [0] * (len(a) + len(b) - 1)
+    for i, x in enumerate(a):
+        for j, y in enumerate(b):
+            out[i + j] ^= mul(x, y)
+    return out
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_division_table_is_the_generator_polynomial(name):
+    """T_f[v] = v (h_f - x^16), h_f = x^(16 - r_f) g_f monic of degree 16,
+    and the product of the g_f is g(x) of `genlog` (the encoder's): the
+    kernel divides by the code's own generator, factor by factor."""
+    rs, _ = _codecs(name)
+    mul, alog = _gf(rs)
+    nr = rs.num_roots
+    tab = rs.kernel.syndrome_tables.numpy().view(np.uint8).reshape(-1, FACTOR_ENTRIES, 16)
+    assert tab.shape[0] == -(-nr // FACTOR_ROOTS)
+    g = [1]
+    for f in range(tab.shape[0]):
+        r_f = min(FACTOR_ROOTS, nr - FACTOR_ROOTS * f)
+        h = [int(c) for c in tab[f, 1]] + [1]          # T_f[1]: h_f's low 16 coefficients
+        pad = FACTOR_ROOTS - r_f
+        assert not any(h[:pad])                        # x^pad divides h_f
+        for v in range(256):
+            assert [int(c) for c in tab[f, v]] == [mul(v, c) for c in h[:FACTOR_ROOTS]]
+        g = _poly_mul(mul, g, h[pad:])
+    genlog = rs.genlog                                 # log form, fs = zero
+    want = [0 if e == 255 else int(alog[e]) for e in genlog]
+    assert g == want
+
+
+@pytest.mark.parametrize("nr", [10, 16, 20, 32, 33, 64])
+def test_syndrome_tables_layout(nr):
+    """Shape, dtype and byte size on the codec; each factor's tail entry
+    (2 b + h) 16 + u holds (u << 4h) b_i^b for its r_f roots and zeros past
+    them; T_f[0] and the tail's u = 0 entries are zero; and the factors'
+    roots are b_0..b_{nr-1} in order."""
     rs = RSCodec(RSConfig(num_roots=nr), "cpu")
-    assert column_words(nr) == W
-    tab = rs.kernel.columns
+    mul, alog = _gf(rs)
+    F = -(-nr // FACTOR_ROOTS)
+    tab = rs.kernel.syndrome_tables
     assert tab.dtype == torch.int32 and tab.is_contiguous()
-    assert tuple(tab.shape) == (255, 8, W)
-    assert tab.numel() * 4 == 255 * 32 * W
-    as_bytes = tab.numpy().view(np.uint32).view("<u1").reshape(255, 8, 4 * W)
-    assert not as_bytes[..., nr:].any()
-    bits = np.unpackbits(as_bytes[..., :nr], axis=-1, bitorder="big")   # c = 0 first
-    g_syn = rs.G_syn.numpy().astype(np.uint8).reshape(255, 8, nr * 8)
-    assert np.array_equal(bits, g_syn)
-    assert torch.equal(syndrome_columns(rs.G_syn, nr), tab)
+    assert tuple(tab.shape) == (F, FACTOR_ENTRIES, 4)
+    assert tab.numel() * 4 == F * (256 + 512) * 16
+    as_bytes = tab.numpy().view(np.uint32).view("<u1").reshape(F, FACTOR_ENTRIES, 16)
+    assert np.array_equal(as_bytes, syndrome_tables(rs.exp2log, rs.log2exp, nr, rs.fcr, rs.prim))
+    assert np.array_equal(_words(as_bytes), tab.numpy().view(np.uint32))
+    for f in range(F):
+        r_f = min(FACTOR_ROOTS, nr - FACTOR_ROOTS * f)
+        assert not as_bytes[f, 0].any()
+        tail = as_bytes[f, 256:].reshape(FACTOR_ROOTS, 2, 16, 16)   # [b, h, u, j]
+        assert not tail[:, :, 0].any()
+        assert not tail[..., r_f:].any()
+        for b in (0, 1, 7, 15):
+            for h in range(2):
+                for u in (1, 9, 15):
+                    want = [mul(u << 4 * h, int(alog[((1 + 16 * f + j) * b) % 255]))
+                            for j in range(r_f)]
+                    assert [int(c) for c in tail[b, h, u, :r_f]] == want
