@@ -88,7 +88,6 @@ card: the multi-card check, for a machine with several cards.
 
 from __future__ import annotations
 
-import dataclasses
 import json
 import sys
 import time
@@ -397,8 +396,9 @@ def ldpc_timing(pt, dev, main, common):
     """Phase 7: at B = BATCH on the main path's inputs, the kernel against
     the plain version (equal, then timed plain, kernel, kernel, plain), the
     adaptive cascade with the kernel as its body against the one launch
-    that decode_*_adaptive makes, the facade with the kernel and with
-    use_kernel="off" (the plain version under the cascade), and encode.
+    that decode_*_adaptive makes, the facade with the kernel and with the
+    plain version (a facade whose codec has its launcher taken away: the
+    plain version under the cascade), and encode.
     Returns the `ldpc_bp` entry of the kernels line."""
     import torch
     from libpoporon_tpu_torch.utils.profiling import time_ms
@@ -474,15 +474,15 @@ def ldpc_timing(pt, dev, main, common):
              "cascade_mbit_per_s": mbit / t_casc * 1e3, **common})
 
         args, kw = facade_args[kind], facade_kw[kind]
-        off = pt.create(dataclasses.replace(facade.config, use_kernel="off"), device="cuda")
-        check(off._ldpc.kernel is None, "use_kernel='off' still has a kernel")
+        plain = pt.create(facade.config, device="cuda")
+        plain._ldpc.kernel = None
         want = facade.decode(*args, **kw)
-        check(all(torch.equal(a, b) for a, b in zip(off.decode(*args, **kw), want)),
-              f"LDPC {kind}: facade with use_kernel='off' != with the kernel")
-        for name, f in (("auto", facade), ("off", off)):
-            reps = {} if name == "auto" else plain_runs(lambda t: f.decode(*args, **kw), None)
+        check(all(torch.equal(a, b) for a, b in zip(plain.decode(*args, **kw), want)),
+              f"LDPC {kind}: facade with the plain version != with the kernel")
+        for name, f in (("kernel", facade), ("plain", plain)):
+            reps = {} if name == "kernel" else plain_runs(lambda t: f.decode(*args, **kw), None)
             t = time_ms(lambda: f.decode(*args, **kw), **reps)
-            log({"bench": f"ldpc_{kind}_facade", "use_kernel": name, "ms": t,
+            log({"bench": f"ldpc_{kind}_facade", "path": name, "ms": t,
                  "mbit_per_s": mbit / t * 1e3, "codewords_per_s": BATCH / t * 1e3,
                  **common, **reps})
         t = time_ms(facade.encode, main["info"])
@@ -1760,11 +1760,14 @@ def main(argv=None) -> int:
          "rows_with_errors": int((timed["k3_binomial"][2][2] != rs.fs).any(dim=1).sum()),
          "kernel_vs_plain": "equal"})
 
-    off = pt.create(pt.RSConfig(use_kernel="off"), device="cuda")
-    check(off._rs.kernel is None, "use_kernel='off' still has a kernel")
-    for name, c in (("auto", codec), ("off", off)):
+    plain = pt.create(pt.RSConfig(), device="cuda")
+    plain._rs.kernel = None          # the plain version under the facade
+    check(all(torch.equal(a, b) for a, b in zip(plain.decode(d_dev, p_dev),
+                                                codec.decode(d_dev, p_dev))),
+          "RS: facade with the plain version != with the kernel")
+    for name, c in (("kernel", codec), ("plain", plain)):
         t = time_ms(c.decode, d_dev, p_dev)
-        log({"bench": "rs_decode_2err_facade", "use_kernel": name, "ms": t,
+        log({"bench": "rs_decode_2err_facade", "path": name, "ms": t,
              "codewords_per_s": BATCH / t * 1e3, **common})
     t = time_ms(codec.encode, data_dev)
     log({"bench": "rs_encode_facade", "ms": t,

@@ -5,12 +5,12 @@ names.  It imports torch and never jax.  So far it carries:
 
 - RS: configs and presets, GF(2^m) tables, RS encode, and the three RS
   decode paths (plain, erasure, external syndrome), whose decode runs
-  through a hand-written CUDA kernel (csrc/rs_decode.cu) on CUDA tensors,
+  through hand-written CUDA kernels (csrc/rs_decode.cu) on the card,
   and the stripe decode (`Codec.reconstruct`: lost cells of shard-major
   stripes rebuilt, one kernel launch on the card);
 - LDPC: the seeded parity-check structure and interleavers, encode, and
   min-sum BP decode, hard and soft, whose BP runs through a hand-written
-  CUDA kernel (csrc/ldpc_bp.cu) on CUDA tensors;
+  CUDA kernel (csrc/ldpc_bp.cu) on the card;
 - BCH: binary BCH for m in [3, 16] (models/bch.py), bit, word and byte
   APIs, in plain PyTorch ops (the JAX package has no BCH kernel);
 - the C-shaped shim (compat.py: the `poporon_*` functions over NumPy
@@ -41,7 +41,10 @@ names.  It imports torch and never jax.  So far it carries:
 `create` puts the codec on the card ("cuda") unless given another device;
 without a card that default raises, and the CPU runs only where the
 caller asks for it (`device="cpu"`, as the tests do).  Inputs are moved
-to the codec's device.
+to the codec's device.  A codec picks kernel or plain version once, when
+it is built: the kernels for a codec on the card whose config is inside
+their gate, the plain PyTorch version for every other codec, and for
+every codec on the CPU.
 """
 
 from .config import (

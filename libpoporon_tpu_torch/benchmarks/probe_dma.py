@@ -117,13 +117,8 @@ def _launch(name, mode, idx, src, rows, sub, repeat, depth):
     # the kernel adds into the low 32 bits, so the int64 holds the uint32 sum
     checksum = torch.zeros((), dtype=torch.int64, device=dev)
     landed = torch.zeros((), dtype=torch.int64, device=dev)
-    with torch.cuda.device(dev):   # the launcher sets the device
-        rc = build.load_library().pp_probe_dma(
-            mode, None if idx is None else idx.data_ptr(), src.data_ptr(), out.data_ptr(),
-            checksum.data_ptr(), landed.data_ptr(), src.shape[0] // sub, rows, sub, repeat,
-            depth, dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    build.launch("pp_probe_dma", dev, mode, idx, src, out, checksum, landed,
+                 src.shape[0] // sub, rows, sub, repeat, depth)
     launches[name] += 1
     return out, checksum, landed
 

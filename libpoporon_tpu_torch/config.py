@@ -10,8 +10,12 @@ dataclasses and presets, with the reference's defaults:
 - LDPC burst-resistant: column_weight=7 (poporon.c:291-294)
 - BCH default:  (4, 0x13, t=3) -> BCH(15,5) (poporon.c:296-299)
 
-LdpcConfig's `use_pallas` (a TPU knob) is `use_kernel` here, as in
-RSConfig; BchConfig has no such knob (BCH has no kernel).
+No config selects a kernel: the JAX package's `use_pallas` (a TPU
+knob) has no counterpart.  An RS or LDPC codec on a card runs its
+hand-written CUDA kernels for every config inside their gate
+(models/rs_cuda.py `RSCudaDecoder.supports`, models/ldpc_cuda.py
+`BPCudaKernel.supports`), and the plain PyTorch version otherwise; a
+codec on the CPU always runs the plain version.  BCH has no kernel.
 """
 
 from __future__ import annotations
@@ -62,15 +66,6 @@ class RSConfig:
     first_consecutive_root: int = 1
     primitive_element: int = 1
     num_roots: int = 32
-    # Hand-written CUDA decode kernel (models/rs_cuda.py, csrc/rs_decode.cu).
-    # "auto": every decode path (plain, erasure, external syndrome) of a
-    # config the kernel supports (m = 8, num_roots <= 64,
-    # (fcr + num_roots) * prim < 2^15; erasure lists 1..num_roots wide)
-    # goes through the kernel wrapper, which launches the kernel for CUDA
-    # tensors and runs the plain PyTorch version for CPU tensors.  Other
-    # configs and erasure widths always run the plain version.
-    # "off": the plain version everywhere.
-    use_kernel: str = "auto"
 
     fec_type = FecType.RS
 
@@ -95,11 +90,11 @@ class LdpcConfig:
     # Iterations of the adaptive cascade's first stage, before the
     # stragglers are re-decoded at the full budget.  0 -> 3
     # (models/ldpc.py STAGE1_ITERS).  The cascade runs for the plain
-    # version only: with the kernel on CUDA tensors an adaptive decode is
-    # one full-budget launch.
+    # version only: with the kernel an adaptive decode is one full-budget
+    # launch.
     adaptive_stage1_iters: int = 0
-    # Rows per full-budget straggler pass of the cascade.  0 -> 256, or
-    # 1024 when the codec has a kernel (models/ldpc.py STRAGGLER_SLOTS).
+    # Rows per full-budget straggler pass of the cascade.  0 -> 256
+    # (models/ldpc.py STRAGGLER_SLOTS).
     adaptive_straggler_slots: int = 0
     # Codewords per plain-version BP loop (models/ldpc.py DECODE_CHUNK):
     # bounds the plain version's working set and lets each slice stop at
@@ -109,14 +104,6 @@ class LdpcConfig:
     # Batch size from which the facade decodes through the adaptive
     # decode (decode_*_adaptive).  0 -> 512.
     adaptive_batch_threshold: int = 0
-    # Hand-written CUDA BP kernel (models/ldpc_cuda.py, csrc/ldpc_bp.cu).
-    # "auto": every decode of a structure the kernel supports (one
-    # codeword's state fits one block's shared memory, edges <= 65535: the
-    # 128-byte codes, 64 B rate-1/3 and 1024 B rate-1/2 among them) goes through
-    # the kernel wrapper, which launches the kernel for CUDA tensors and
-    # runs the plain PyTorch version for CPU tensors.  Other structures
-    # always run the plain version.  "off": the plain version everywhere.
-    use_kernel: str = "auto"
 
     fec_type = FecType.LDPC
 

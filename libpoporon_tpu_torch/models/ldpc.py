@@ -18,9 +18,12 @@ XLA path on every input: ok, output bytes and iteration counts.
   and the arithmetic runs in int32.
 
 The decode bodies here are the plain version of the CUDA kernel
-(models/ldpc_cuda.py): a codec whose structure the kernel supports sends
-every decode through the kernel's wrapper, which launches the kernel for
-CUDA tensors and runs these functions for CPU tensors.
+(models/ldpc_cuda.py).  A codec decides once, when it is built, which of
+the two it runs: a codec on a card whose structure the kernel supports
+(`BPCudaKernel.supports`) builds its launcher (`kernel`) and sends every
+decode through it, an adaptive one as one full-budget launch; every
+other codec, and every codec on the CPU, has `kernel` None and runs
+these functions, an adaptive decode through the cascade.
 """
 
 from __future__ import annotations
@@ -377,8 +380,6 @@ class LDPCCodec:
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but torch sees no CUDA device")
-        if cfg.use_kernel not in ("auto", "off"):
-            raise ValueError(f"use_kernel must be 'auto' or 'off', got {cfg.use_kernel!r}")
         s = structure if structure is not None else get_structure(cfg)
         self.cfg = cfg
         self.device = device
@@ -422,14 +423,10 @@ class LDPCCodec:
         if cfg.adaptive_straggler_slots:
             self.STRAGGLER_SLOTS = int(cfg.adaptive_straggler_slots)
 
-        # The kernel's wrapper, for structures the kernel supports.  With
-        # a kernel the straggler passes are 1024 wide, as the JAX package
-        # makes them with its kernel (ldpc.py:520-526).
+        # The kernel's launcher: on a card, for structures the kernel supports.
         self.kernel = None
-        if cfg.use_kernel == "auto" and BPCudaKernel.supports(s):
-            self.kernel = BPCudaKernel(self)
-            if not cfg.adaptive_straggler_slots:
-                self.STRAGGLER_SLOTS = 1024
+        if device.type == "cuda" and BPCudaKernel.supports(s):
+            self.kernel = BPCudaKernel(s, device)
 
     @classmethod
     def from_arrays(cls, cfg: LdpcConfig, arrays: dict,
@@ -661,8 +658,8 @@ class LDPCCodec:
         return tuple(torch.cat(p) for p in zip(*parts))
 
     def _decode(self, kind, inputs, max_iterations):
-        """Full-budget decode of every row: through the kernel's wrapper
-        where there is a kernel, else the plain version."""
+        """Full-budget decode of every row: through the kernel where the
+        codec has one, else the plain version."""
         if self.kernel is None:
             return self._plain(kind, inputs, max_iterations)
         if kind == "hard":
@@ -682,7 +679,7 @@ class LDPCCodec:
         STRAGGLER_SLOTS not-yet-done rows each (the lowest indices first,
         as lax.top_k over the not-done mask picks them) until every row is
         done.  body(inputs, max_iterations) -> (ok, packed, iters) is a
-        full-budget decode: the plain version or the kernel's wrapper."""
+        full-budget decode: the plain version or the kernel."""
         s1 = min(self.STAGE1_ITERS, max_iterations)
         ok, cw, it = body(inputs, s1)
         if s1 >= max_iterations:
@@ -696,11 +693,11 @@ class LDPCCodec:
         return ok, cw, it
 
     def _decode_adaptive(self, kind, inputs, max_iterations):
-        """With the kernel on CUDA tensors, one full-budget launch: the
-        kernel stops each codeword at its own convergence, so the cascade
-        would only add stage-1 trips and host syncs.  Otherwise the
-        cascade over _decode."""
-        if self.kernel is not None and inputs.device.type == "cuda":
+        """With the kernel, one full-budget launch: the kernel stops each
+        codeword at its own convergence, so the cascade would only add
+        stage-1 trips and host syncs.  Otherwise the cascade over the
+        plain version."""
+        if self.kernel is not None:
             return self._decode(kind, inputs, max_iterations)
         return self.cascade(lambda x, mi: self._decode(kind, x, mi), inputs, max_iterations)
 

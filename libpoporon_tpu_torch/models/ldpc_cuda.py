@@ -1,14 +1,16 @@
-"""Wrapper of the hand-written CUDA LDPC BP kernel (csrc/ldpc_bp.cu).
+"""Launcher of the hand-written CUDA LDPC BP kernel (csrc/ldpc_bp.cu).
 
 Counterpart of libpoporon_tpu/models/ldpc_pallas.py: one kernel serves
 the packed hard entry, the int8 soft entry and the expanded-LLR `bp`
-entry.  For a CUDA tensor the wrapper launches the kernel (and raises if
-the launch fails); for a CPU tensor it runs the kernel's plain PyTorch
-version (models/ldpc.py).
+entry.  `BPCudaKernel` launches it on CUDA tensors through
+utils/build.py `launch`, and raises if the launch fails; it knows
+nothing of the codec.  models/ldpc.py `LDPCCodec` builds one for a codec
+on a card whose structure the kernel supports (`BPCudaKernel.supports`);
+every other codec runs the plain PyTorch version there.
 
 The kernel's blocks are persistent: each holds `groups` codeword groups,
 and a group takes codewords from a device counter until the batch is
-done, so any batch size runs with no host padding.  The wrapper builds
+done, so any batch size runs with no host padding.  The launcher builds
 the graph's layout for the card once (`kernel_layout`), chooses from the
 sizes whether the blocks keep that layout in shared memory or read it
 from global memory (`launch_form`), and launches as many blocks as the
@@ -136,7 +138,8 @@ class BPCudaKernel:
     CUDA kernel.
 
     `launches` counts kernel launches, so that a run can show that its
-    decodes went through the kernel.
+    decodes went through the kernel.  Every entry takes CUDA tensors on
+    the launcher's card, and raises ValueError for any other.
     """
 
     @staticmethod
@@ -148,28 +151,25 @@ class BPCudaKernel:
                 and structure.num_edges_used <= MAX_INDEX
                 and structure.num_bits <= MAX_INDEX)
 
-    def __init__(self, codec):
-        """codec: models.ldpc.LDPCCodec (supplies the structure and the
-        plain version)."""
-        s = codec.structure
+    def __init__(self, structure, device):
+        """structure: models.ldpc.LdpcStructure; device: the card the
+        kernel runs on."""
+        s = structure
         if not self.supports(s):
             raise ValueError("LDPC structure outside the kernel's gate")
-        self.codec = codec
         self.launches = 0
         self.V, self.P, self.E = s.num_bits, s.num_checks, s.num_edges_used
         lay = kernel_layout(s)
         self.runs, self.dv = len(lay["runs"]), lay["dv"]
         self.has_src = int(lay["src"] is not None)
         self.form = launch_form(s, lay)
-        self.graph = torch.from_numpy(lay["blob"]).to(codec.device)
+        self.graph = torch.from_numpy(lay["blob"]).to(device)
         self._blocks_per_sm = {}
 
     def bp_packed_hard(self, codeword_bytes, mi: int):
         """Hard decode from packed bytes [B, ceil(V/8)] u8, the inner
         deinterleaver folded in.  Returns (ok [B] bool, packed output
         [B, ceil(V/8)] u8, iters [B] int32)."""
-        if codeword_bytes.device.type == "cpu":
-            return self.codec._plain("hard", codeword_bytes, mi)
         nbytes = (self.V + 7) // 8
         x = checked(codeword_bytes, torch.uint8,
                     (codeword_bytes.shape[0], nbytes), codeword_bytes.device)
@@ -178,22 +178,18 @@ class BPCudaKernel:
     def bp_llr8_soft(self, llr8, mi: int):
         """Soft decode from channel LLRs [B, V] int8 (x256 inside), the
         inner deinterleaver folded in.  Returns as bp_packed_hard."""
-        if llr8.device.type == "cpu":
-            return self.codec._plain("soft", llr8, mi)
         x = checked(llr8, torch.int8, (llr8.shape[0], self.V), llr8.device)
         return self._launch(MODE_SOFT_LLR8, x, None, (self.V + 7) // 8, torch.uint8, mi)
 
     def bp(self, llr_init_p, channel_soft_p, mi: int):
-        """The BP loop on var-major LLR tensors (LDPCCodec._bp_loop's
-        contract, with the initial bits and the pre-converged mask derived
-        from the signs of llr_init_p in hard mode).
+        """The BP loop on var-major LLR tensors (LDPCCodec._bp_plain's
+        contract: the initial bits and the pre-converged mask derived from
+        the signs of llr_init_p in hard mode).
 
         llr_init_p: [V+1, B] int16 in +-32000, fake row V at +32000;
         channel_soft_p: None (hard) or [V+1, B] int16.  Returns (ok [B]
         bool, out_bits [V+1, B] int8 with the fake row 0, iters [B] int32).
         """
-        if llr_init_p.device.type == "cpu":
-            return self.codec._bp_plain(llr_init_p, channel_soft_p, mi)
         dev, V = llr_init_p.device, self.V
         B = llr_init_p.shape[1]
         llr = checked(llr_init_p, torch.int16, (V + 1, B), dev)[:V].T.contiguous()
@@ -208,25 +204,26 @@ class BPCudaKernel:
 
     def blocks_per_sm(self, mode: int, device) -> int:
         """Blocks of this code's form that one SM of `device` holds at
-        once (the CUDA occupancy calculator), cached per mode."""
+        once (the CUDA occupancy calculator), cached per mode and card."""
         dev = torch.device(device)
         key = (mode, dev.index or 0)
         if key not in self._blocks_per_sm:
             f = self.form
-            with torch.cuda.device(dev):   # the C side sets the device
-                n = build.load_library().pp_ldpc_bp_blocks_per_sm(
-                    mode, self.V, self.P, self.E, self.runs, self.dv, self.has_src,
-                    int(f["form"] == "shared"), f["groups"], f["threads"], dev.index or 0)
-            if n < 1:
-                raise RuntimeError(f"ldpc_bp kernel: no block fits an SM (CUDA error {-n})")
+            n = build.occupancy(
+                "pp_ldpc_bp_blocks_per_sm", dev, mode, self.V, self.P, self.E, self.runs,
+                self.dv, self.has_src, int(f["form"] == "shared"), f["groups"], f["threads"],
+                dev.index or 0)
+            if n == 0:
+                raise RuntimeError("ldpc_bp kernel: no block fits an SM")
             self._blocks_per_sm[key] = n
         return self._blocks_per_sm[key]
 
     def _launch(self, mode, x, chan, out_width, out_dtype, mi):
         with span("poporon.launch.ldpc_bp"):
             dev = x.device
-            if dev.type != "cuda":
-                raise ValueError(f"the LDPC kernel takes CUDA tensors, got {dev}")
+            if dev.type != "cuda" or dev != self.graph.device:
+                raise ValueError(f"the LDPC kernel takes CUDA tensors on {self.graph.device}, "
+                                 f"got {dev}")
             if mi < 1:
                 raise ValueError(f"max_iterations must be >= 1, got {mi}")
             B = x.shape[0]
@@ -235,22 +232,12 @@ class BPCudaKernel:
             iters = torch.empty(B, dtype=torch.int32, device=dev)
             if B == 0:
                 return ok, out, iters
-            graph = self.graph.to(dev)
             counter = torch.zeros(1, dtype=torch.int32, device=dev)
             f = self.form
-            sms = torch.cuda.get_device_properties(dev).multi_processor_count
-            grid = min(sms * self.blocks_per_sm(mode, dev), -(-B // f["groups"]))
-
-            def ptr(t):
-                return None if t is None else t.data_ptr()
-
-            with torch.cuda.device(dev):
-                rc = build.load_library().pp_ldpc_bp(
-                    mode, ptr(x), ptr(chan), ptr(graph), ptr(out), ptr(ok), ptr(iters),
-                    ptr(counter), B, self.V, self.P, self.E, self.runs, self.dv, self.has_src,
-                    int(mi), int(f["form"] == "shared"), f["groups"], f["threads"], grid,
-                    dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
-            if rc != 0:
-                raise RuntimeError(f"ldpc_bp kernel launch failed: CUDA error {rc}")
+            grid = min(build.sm_count(dev.index or 0) * self.blocks_per_sm(mode, dev),
+                       -(-B // f["groups"]))
+            build.launch("pp_ldpc_bp", dev, mode, x, chan, self.graph, out, ok, iters, counter,
+                         B, self.V, self.P, self.E, self.runs, self.dv, self.has_src, int(mi),
+                         int(f["form"] == "shared"), f["groups"], f["threads"], grid)
             self.launches += 1
             return ok, out, iters

@@ -18,10 +18,13 @@ on every input.
   inverse, are the JAX package's carry-less products instead.  Root
   compaction and the scatters are plain `scatter_` / `scatter_add_`.
 
-The decode functions here are the plain version of the CUDA kernel
-(models/rs_cuda.py): `decode` sends every path of a supported config
-through the kernel's wrapper, which runs these functions only for CPU
-tensors.
+The decode functions here are the plain version of the CUDA kernels
+(models/rs_cuda.py).  A codec decides once, when it is built, which of
+the two it runs: a codec on a card whose config the kernels support
+(`RSCudaDecoder.supports`) builds their launcher (`kernel`) and sends
+every decode and `reconstruct` through it, erasure lists past its width
+excepted; every other codec, and every codec on the CPU, has `kernel`
+None and runs these functions.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ from ..ops.gfint import gf_inv_clmul, gf_mul, gf_mul_clmul
 from ..utils.cache import LruCache
 from ..utils.profiling import span
 from ..utils.tensors import as_tensor
-from .rs_cuda import RSCudaDecoder
+from .rs_cuda import RSCudaDecoder, gf_tables
 
 # The arrays a codec is built from, by the JAX codec's attribute names
 # (`gf.log2exp` and `gf.exp2log` there).
@@ -242,8 +245,6 @@ class RSCodec:
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but torch sees no CUDA device")
-        if cfg.use_kernel not in ("auto", "off"):
-            raise ValueError(f"use_kernel must be 'auto' or 'off', got {cfg.use_kernel!r}")
         gf = GF(cfg.symbol_size, cfg.generator_polynomial)
         if cfg.primitive_element == 0:
             raise GFError("primitive_element must be nonzero (poporon.c:78-82)")
@@ -285,10 +286,11 @@ class RSCodec:
         self.log2exp = i32("log2exp")    # [fs+1], log2exp[fs] = 0
         self.exp2log = i32("exp2log")    # [fs+1], exp2log[0] = fs
 
-        # The kernel's wrapper, for configs the kernel supports.
+        # The kernels' launcher: on a card, for configs the kernels support.
         self.kernel = None
-        if cfg.use_kernel == "auto" and RSCudaDecoder.supports(self):
-            self.kernel = RSCudaDecoder(self)
+        if device.type == "cuda" and RSCudaDecoder.supports(self):
+            self.kernel = RSCudaDecoder(gf_tables(self), self.num_roots, self.k, self.fcr,
+                                        self.prim, self.prim_inv, device)
 
     @classmethod
     def from_arrays(cls, cfg: RSConfig, arrays: dict[str, np.ndarray],

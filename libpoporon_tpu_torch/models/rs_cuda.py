@@ -1,4 +1,4 @@
-"""Wrapper of the hand-written CUDA RS kernels (csrc/rs_decode.cu).
+"""Launcher of the hand-written CUDA RS kernels (csrc/rs_decode.cu).
 
 Counterpart of libpoporon_tpu/models/rs_pallas.py.  Two kernels serve the
 plain, erasure and external-syndrome decode paths: a syndrome kernel
@@ -7,11 +7,14 @@ plain, erasure and external-syndrome decode paths: a syndrome kernel
 syndromes.  A third, the stripe kernel, rebuilds the lost cells of
 shard-major stripes (`reconstruct`) from a plan worked out on the host
 once a loss pattern (`stripe_plan`); the JAX
-package has no counterpart.  For a CUDA tensor the wrapper launches the
-kernels (and raises if a launch fails); for a CPU tensor it runs their
-plain PyTorch version (models/rs.py).  The kernels take any batch size,
-masking the ragged last block themselves, so no host-side padding is
-needed.
+package has no counterpart.  `RSCudaDecoder` launches them on CUDA
+tensors through utils/build.py `launch`, and raises if a launch fails;
+it knows nothing of the codec.  models/rs.py `RSCodec` builds one for a
+codec on a card inside the gate (`RSCudaDecoder.supports`); every other
+codec runs the plain PyTorch version there.  The kernels take any batch
+size, masking the ragged last block themselves, so no host-side padding
+is needed.  `gf_tables`, `syndrome_tables` and `stripe_plan` make the
+kernels' host data, for the launcher and the tests alike.
 """
 
 from __future__ import annotations
@@ -206,6 +209,12 @@ def syndrome_tables(exp2log, log2exp, nr: int, fcr: int, prim: int) -> np.ndarra
     return out
 
 
+def gf_tables(rs) -> np.ndarray:
+    """The kernels' GF(2^8) tables of the codec `rs` (models/rs.py
+    RSCodec), int32 [4, 256] on the host: log, antilog, sec and inv."""
+    return torch.stack([rs.exp2log, rs.log2exp, rs.sec_tbl, rs.inv_tbl]).cpu().numpy()
+
+
 class RSCudaDecoder:
     """rs_decode (plain / erasure / external-syndrome) as CUDA kernels.
 
@@ -214,6 +223,8 @@ class RSCudaDecoder:
     `launches` counts every kernel launch, `syndrome_launches` those of
     the syndrome kernel and `stripe_launches` those of the stripe kernel,
     so that a run can show that its decodes went through the kernels.
+    Every entry takes CUDA tensors on the launcher's card, and raises
+    ValueError for any other.
     """
 
     @staticmethod
@@ -231,68 +242,52 @@ class RSCudaDecoder:
             and rs.gf.primitive
         )
 
-    def __init__(self, rs):
-        """rs: models.rs.RSCodec (supplies the tables and the plain path)."""
-        if not self.supports(rs):
-            raise ValueError("RS config outside the kernel's gate")
-        self.rs = rs
+    def __init__(self, tables: np.ndarray, nr: int, k: int, fcr: int, prim: int,
+                 prim_inv: int, device):
+        """tables: the code's `gf_tables`; nr roots, k = 255 - nr data
+        symbols at most, fcr, prim and prim_inv as models/rs.py RSCodec
+        has them; device: the card the kernels run on."""
+        self.nr, self.k, self.fcr, self.prim, self.prim_inv = nr, k, fcr, prim, prim_inv
         self.launches = 0
         self.syndrome_launches = 0
         self.stripe_launches = 0
-        # [4, 256] int32 on the codec's device: log, antilog, sec, inv
-        self.tables = torch.stack(
-            [rs.exp2log, rs.log2exp, rs.sec_tbl, rs.inv_tbl]).contiguous()
-        self._host_tables = self.tables.cpu().numpy()
+        self._host_tables = np.asarray(tables, dtype=np.int32)
+        self.tables = torch.from_numpy(self._host_tables).to(device)   # [4, 256] int32
+        # int32 [F, FACTOR_ENTRIES, 4] (syndrome_tables)
+        self.syndrome_tables = torch.from_numpy(syndrome_tables(
+            self._host_tables[0], self._host_tables[1], nr, fcr, prim).view(np.int32)).to(device)
         self._plans = LruCache(capacity=16)   # (n, lost) -> StripePlan, arrays on the card
         self._work = {}                       # (card, stream) -> the stripe kernel's ticket
         self._shapes = {}                     # (card, n_surv, fast, vec) -> its launch shape
         self._syndrome_shapes = {}            # card -> the syndrome kernel's launch shape
-        # int32 [F, FACTOR_ENTRIES, 4] on the codec's device (syndrome_tables)
-        self.syndrome_tables = torch.from_numpy(syndrome_tables(
-            rs.exp2log.cpu(), rs.log2exp.cpu(), rs.num_roots, rs.fcr, rs.prim
-        ).view(np.int32)).to(rs.exp2log.device)
 
     def supports_erasure(self, E: int) -> bool:
-        """Erasure lists 1..num_roots wide ride the kernel."""
-        return 0 < E <= self.rs.num_roots
+        """Erasure lists 1..nr wide ride the kernel."""
+        return 0 < E <= self.nr
 
     def syndromes(self, data, parity):
         """Log-form syndromes int32 [B, nr] (fs where S_i = 0) of the rows
         data [B, size] | parity [B, nr]."""
-        if data.device.type == "cpu":
-            rs = self.rs
-            return rs.exp2log[rs._syndrome(data, parity).long()]
         return self._syndromes(*self._rows(data, parity))
 
     def decode_plain(self, data, parity):
-        if data.device.type == "cpu":
-            return self.rs._decode_plain(data, parity)
         return self._launch(MODE_PLAIN, data, parity)
 
     def decode_erasure(self, data, parity, eras_pos, eras_count):
-        if data.device.type == "cpu":
-            return self.rs._decode_erasure(data, parity, eras_pos, eras_count)
         return self._launch(MODE_ERASURE, data, parity,
                             eras_pos=eras_pos, eras_count=eras_count)
 
     def decode_ext(self, data, parity, s_log):
-        if data.device.type == "cpu":
-            return self.rs._decode_ext_syndrome(data, parity, s_log)
         return self._launch(MODE_EXT, data, parity, s_log=s_log)
 
     def reconstruct(self, cells, lost: tuple[int, ...]):
         """The stripe decode of shard-major cells uint8 [n, L] whose cells
         `lost` (distinct indices, 1..nr of them) are lost: (ok bool [L],
         rebuilt uint8 [e, L], corrected uint8 [L], failed int32 []) as
-        models/rs.py `RSCodec._reconstruct` gives them.  One launch of the
-        stripe kernel for a CUDA tensor, the plain version for a CPU one."""
-        if cells.device.type == "cpu":
-            return self.rs._reconstruct(cells, lost)
+        models/rs.py `RSCodec._reconstruct` gives them, in one launch of
+        the stripe kernel."""
         with span("poporon.launch.rs_stripe"):
-            rs = self.rs
-            dev = cells.device
-            if dev != self.tables.device:
-                raise ValueError(f"cells on {dev}, the codec's tables on {self.tables.device}")
+            dev = self._card(cells)
             n, L = cells.shape
             cells = checked(cells, torch.uint8, (n, L), dev)
             plan = self._stripe_plan(n, tuple(lost))
@@ -308,14 +303,9 @@ class RSCudaDecoder:
             blocks, smem, fast = self._stripe_shape(dev, len(plan.surv), plan.fast, vec)
             work = self._stripe_work(dev, blocks)
             grid = min(blocks, -(-L // STRIPE_CHUNK))
-            with torch.cuda.device(dev):
-                rc = build.load_library().pp_rs_stripe(
-                    cells.data_ptr(), *plan.pointers, self.tables.data_ptr(),
-                    rebuilt.data_ptr(), ok.data_ptr(), corrected.data_ptr(), failed.data_ptr(),
-                    work.data_ptr(), grid, smem, L, n, e, rs.num_roots, rs.fcr, rs.prim,
-                    rs.prim_inv, int(fast), plan.tmask, int(vec), *self._stream(dev))
-            if rc != 0:
-                raise RuntimeError(f"rs_stripe kernel launch failed: CUDA error {rc}")
+            build.launch("pp_rs_stripe", dev, cells, *plan.pointers, self.tables, rebuilt, ok,
+                         corrected, failed, work, grid, smem, L, n, e, self.nr, self.fcr,
+                         self.prim, self.prim_inv, int(fast), plan.tmask, int(vec))
             self.launches += 1
             self.stripe_launches += 1
             return ok, rebuilt, corrected, failed
@@ -325,9 +315,8 @@ class RSCudaDecoder:
         [lost, surv, nibbles] (`arrays`, `pointers` to the three), built
         once a pattern."""
         def build_plan():
-            rs = self.rs
-            plan = stripe_plan(self._host_tables, rs.num_roots, rs.fcr, rs.prim,
-                               rs.prim_inv, n, lost)
+            plan = stripe_plan(self._host_tables, self.nr, self.fcr, self.prim,
+                               self.prim_inv, n, lost)
             flat = np.concatenate([np.asarray(plan.lost, dtype=np.int32),
                                    np.asarray(plan.surv, dtype=np.int32),
                                    plan.nibbles.reshape(-1).view(np.int32)])
@@ -348,18 +337,16 @@ class RSCudaDecoder:
         card = dev.index or 0
         key = (card, n_surv, fast, vec)
         if key not in self._shapes:
-            sms = torch.cuda.get_device_properties(dev).multi_processor_count
             smem = ctypes.c_int(0)
-            with torch.cuda.device(dev):
-                per_sm = build.load_library().pp_rs_stripe_blocks_per_sm(
-                    n_surv, int(fast), int(vec), card, ctypes.addressof(smem))
+            per_sm = build.occupancy("pp_rs_stripe_blocks_per_sm", dev, n_surv, int(fast),
+                                     int(vec), card, ctypes.addressof(smem))
             if per_sm == 0 and fast:
                 self._shapes[key] = self._stripe_shape(dev, n_surv, False, vec)
-            elif per_sm < 1:
-                raise RuntimeError(f"rs_stripe kernel: {per_sm} blocks an SM at "
+            elif per_sm == 0:
+                raise RuntimeError(f"rs_stripe kernel: no block fits an SM at "
                                    f"{smem.value} B of shared memory")
             else:
-                self._shapes[key] = (sms * per_sm, smem.value, fast)
+                self._shapes[key] = (build.sm_count(card) * per_sm, smem.value, fast)
         return self._shapes[key]
 
     def _stripe_work(self, dev, blocks: int) -> torch.Tensor:
@@ -367,28 +354,28 @@ class RSCudaDecoder:
         blocks] at least, on the current stream of `dev`: zeroed when made,
         and left at zero by every launch, so that launches on one stream,
         which run in turn, share it."""
-        key = (dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+        key = build.stream(dev)
         if key not in self._work or self._work[key].numel() < 1 + blocks:
             self._work[key] = torch.zeros(1 + blocks, dtype=torch.int32, device=dev)
         return self._work[key]
 
+    def _card(self, t: torch.Tensor) -> torch.device:
+        """t's device, which must be the launcher's card."""
+        dev = t.device
+        if dev.type != "cuda" or dev != self.tables.device:
+            raise ValueError(f"the RS kernels take CUDA tensors on {self.tables.device}, "
+                             f"got {dev}")
+        return dev
+
     def _rows(self, data, parity):
         """data and parity checked for the kernels: CUDA tensors on the
-        codec's device, uint8, contiguous."""
-        dev = data.device
-        if dev.type != "cuda":
-            raise ValueError(f"the RS kernels take CUDA tensors, got {dev}")
-        if dev != self.tables.device:
-            raise ValueError(f"rows on {dev}, the codec's tables on {self.tables.device}")
+        launcher's card, uint8, contiguous."""
+        dev = self._card(data)
         B, size = data.shape
-        if not 0 < size <= self.rs.k:
-            raise ValueError(f"size {size} outside 1..{self.rs.k}")
+        if not 0 < size <= self.k:
+            raise ValueError(f"size {size} outside 1..{self.k}")
         return (checked(data, torch.uint8, (B, size), dev),
-                checked(parity, torch.uint8, (B, self.rs.num_roots), dev))
-
-    @staticmethod
-    def _stream(dev):
-        return dev.index or 0, torch.cuda.current_stream(dev).cuda_stream
+                checked(parity, torch.uint8, (B, self.nr), dev))
 
     def _syndrome_shape(self, dev):
         """The syndrome kernel's launch on `dev`: (blocks the card holds at
@@ -397,48 +384,40 @@ class RSCudaDecoder:
         card."""
         card = dev.index or 0
         if card not in self._syndrome_shapes:
-            sms = torch.cuda.get_device_properties(dev).multi_processor_count
             copies, smem = ctypes.c_int(0), ctypes.c_int(0)
-            with torch.cuda.device(dev):
-                per_sm = build.load_library().pp_rs_syndrome_shape(
-                    self.rs.num_roots, card, ctypes.addressof(copies), ctypes.addressof(smem))
-            if per_sm < 1:
-                raise RuntimeError(f"rs_syndrome kernel: {per_sm} blocks an SM at "
+            per_sm = build.occupancy("pp_rs_syndrome_shape", dev, self.nr, card,
+                                     ctypes.addressof(copies), ctypes.addressof(smem))
+            if per_sm == 0:
+                raise RuntimeError(f"rs_syndrome kernel: no block fits an SM at "
                                    f"{smem.value} B of shared memory")
-            self._syndrome_shapes[card] = (sms * per_sm, copies.value, smem.value)
+            self._syndrome_shapes[card] = (build.sm_count(card) * per_sm, copies.value,
+                                           smem.value)
         return self._syndrome_shapes[card]
 
     def _syndromes(self, data, parity):
         with span("poporon.launch.rs_syndrome"):
-            rs = self.rs
             dev = data.device
             B, size = data.shape
-            s_log = torch.empty(B, rs.num_roots, dtype=torch.int32, device=dev)
+            s_log = torch.empty(B, self.nr, dtype=torch.int32, device=dev)
             if B == 0:
                 return s_log
             blocks, copies, smem = self._syndrome_shape(dev)
             grid = min(blocks, -(-B // SYNDROME_TILE))
-            with torch.cuda.device(dev):   # the launcher sets the device
-                rc = build.load_library().pp_rs_syndrome(
-                    data.data_ptr(), parity.data_ptr(), self.syndrome_tables.data_ptr(),
-                    self.tables.data_ptr(), s_log.data_ptr(), B, size, rs.num_roots,
-                    copies, grid, smem, *self._stream(dev))
-        if rc != 0:
-            raise RuntimeError(f"rs_syndrome kernel launch failed: CUDA error {rc}")
+            build.launch("pp_rs_syndrome", dev, data, parity, self.syndrome_tables, self.tables,
+                         s_log, B, size, self.nr, copies, grid, smem)
         self.launches += 1
         self.syndrome_launches += 1
         return s_log
 
     def _launch(self, mode, data, parity, eras_pos=None, eras_count=None,
                 s_log=None):
-        """The decode of CUDA tensors: in plain and erasure mode the
-        syndrome kernel, then the decode kernel from the syndromes."""
+        """The decode: in plain and erasure mode the syndrome kernel, then
+        the decode kernel from the syndromes."""
         with span("poporon.launch.rs_decode"):
-            rs = self.rs
             data, parity = self._rows(data, parity)
             dev = data.device
             B, size = data.shape
-            nr = rs.num_roots
+            nr = self.nr
             eras_width = 0
             if mode == MODE_ERASURE:
                 eras_width = eras_pos.shape[1]
@@ -457,17 +436,8 @@ class RSCudaDecoder:
             corrected = torch.empty(B, dtype=torch.int32, device=dev)
             if B == 0:
                 return ok, data_out, parity_out, corrected
-
-            def ptr(t):
-                return None if t is None else t.data_ptr()
-
-            with torch.cuda.device(dev):
-                rc = build.load_library().pp_rs_decode(
-                    int(mode == MODE_ERASURE), ptr(data), ptr(parity), ptr(eras_pos),
-                    ptr(eras_count), eras_width, ptr(s_log), ptr(self.tables), ptr(data_out),
-                    ptr(parity_out), ptr(ok), ptr(corrected),
-                    B, size, nr, rs.fcr, rs.prim, rs.prim_inv, *self._stream(dev))
-            if rc != 0:
-                raise RuntimeError(f"rs_decode kernel launch failed: CUDA error {rc}")
+            build.launch("pp_rs_decode", dev, int(mode == MODE_ERASURE), data, parity, eras_pos,
+                         eras_count, eras_width, s_log, self.tables, data_out, parity_out, ok,
+                         corrected, B, size, nr, self.fcr, self.prim, self.prim_inv)
             self.launches += 1
             return ok, data_out, parity_out, corrected

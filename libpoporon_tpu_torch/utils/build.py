@@ -1,12 +1,20 @@
-"""Build and load the package's CUDA kernels at first use.
+"""Build, load and launch the package's CUDA kernels.
 
 Every `csrc/*.cu` file is compiled with nvcc for Hopper (`sm_90a`), one
 nvcc process per source, all started together, and the objects are
 linked into one shared library with a plain C interface, loaded with
-ctypes.  The library's name carries a hash of the sources and flags, so
-an edited source builds anew and an unchanged one is loaded from
-`build/`.  A failed build raises with nvcc's output; there is no
-fallback.
+ctypes at first use.  The library's name carries a hash of the sources
+and flags, so an edited source builds anew and an unchanged one is
+loaded from `build/`.  A failed build raises with nvcc's output; there
+is no fallback.
+
+Every launch of the library goes through `launch`, every occupancy query
+through `occupancy`: they enter the card, pass it and its current stream
+(`stream`), and raise on an error the entry returns.  The kernel
+launchers (models/rs_cuda.py, models/ldpc_cuda.py,
+benchmarks/probe_dma.py) take CUDA tensors only.  A codec on the card
+whose config is inside its kernel's gate builds a launcher; every other
+codec, and every codec on the CPU, runs its plain PyTorch version.
 """
 
 from __future__ import annotations
@@ -18,6 +26,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -127,3 +137,39 @@ def load_library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def stream(device: torch.device) -> tuple[int, int]:
+    """(card index, handle of the card's current stream): the last two
+    arguments of every launch entry."""
+    return device.index or 0, torch.cuda.current_stream(device).cuda_stream
+
+
+def launch(entry: str, device: torch.device, *args) -> None:
+    """Launch `entry` on `device`'s current stream with `args` (as
+    SIGNATURES lists them, without the card and the stream; a tensor
+    passes its address, found by exact type, which costs less than
+    `isinstance` on every launch).  Raises RuntimeError naming the entry
+    and the CUDA error it returns."""
+    args = [a.data_ptr() if type(a) is torch.Tensor else a for a in args]
+    with torch.cuda.device(device):
+        rc = getattr(load_library(), entry)(*args, *stream(device))
+    if rc != 0:
+        raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
+
+
+def occupancy(entry: str, device: torch.device, *args) -> int:
+    """Blocks one SM of `device` holds at once, as the occupancy entry
+    `entry` reports it for `args` (as SIGNATURES lists them).  Raises
+    RuntimeError on a negative result, the CUDA error."""
+    with torch.cuda.device(device):
+        n = getattr(load_library(), entry)(*args)
+    if n < 0:
+        raise RuntimeError(f"{entry} failed: CUDA error {-n}")
+    return n
+
+
+@functools.cache
+def sm_count(card: int) -> int:
+    """The SMs of card `card`."""
+    return torch.cuda.get_device_properties(card).multi_processor_count

@@ -3,8 +3,8 @@
 The same inputs, made with NumPy from a seed, go through
 libpoporon_tpu's `LDPCCodec(LdpcConfig(..., use_pallas="off"))` and the
 port's `LDPCCodec`; ok, output bytes and iteration counts must be equal.
-On CPU tensors the port's kernel wrapper runs the plain PyTorch version,
-so these tests hold the kernel's plain version to the reference.
+A codec on the CPU has no kernel and runs the plain PyTorch version, so
+these tests hold the kernel's plain version to the reference.
 """
 
 import dataclasses
@@ -23,7 +23,7 @@ from libpoporon_tpu.utils import bits as jbits  # noqa: E402
 
 from libpoporon_tpu_torch.config import LdpcConfig, LdpcRate  # noqa: E402
 from libpoporon_tpu_torch.models.ldpc import (  # noqa: E402
-    LLR_INFINITY, LLR_MAX, LDPCCodec)
+    LLR_INFINITY, LLR_MAX, LDPCCodec, get_structure)
 from libpoporon_tpu_torch.models.ldpc_cuda import BPCudaKernel  # noqa: E402
 
 from test_torch_ldpc_structure import config_pair, jax_arrays  # noqa: E402
@@ -139,10 +139,8 @@ def test_decode_matches_jax_and_adaptive_matches_plain(pair, kind):
         assert (iters[: B // 8] == 0).all()        # clean rows: iteration-0 detect
     else:
         assert (iters[ok] >= 1).all()             # soft has no iteration-0 detect
+    assert pl.kernel is None and pl.STRAGGLER_SLOTS == 256   # the cascade, 256 a pass
     assert_same(getattr(pl, f"decode_{kind}_adaptive")(x), want)
-    off = LDPCCodec(dataclasses.replace(config_pair("128B-r12")[1], use_kernel="off"), "cpu")
-    assert off.kernel is None and off.STRAGGLER_SLOTS == 256
-    assert_same(getattr(off, f"decode_{kind}_adaptive")(x), want)
 
 
 def test_all_saturated_checks_match_jax(pair):
@@ -229,9 +227,7 @@ def test_bp_entry_matches_jax_bp_loop(pair, kind):
         conv0 = jnp.zeros((n,), bool)
     want = [np.asarray(a) for a in jl._bp_loop(llr0, chan, bits_p8, conv0, 9)]
     to_t = (lambda a: None if a is None else torch.from_numpy(np.array(a)))
-    before = pl.kernel.launches
-    got = pl.kernel.bp(to_t(llr0), to_t(chan), 9)
-    assert pl.kernel.launches == before
+    got = pl._bp_plain(to_t(llr0), to_t(chan), 9)
     V = pl.codeword_bits
     assert np.array_equal(got[0].numpy(), want[0])
     assert np.array_equal(got[1].numpy()[:V], want[1][:V])
@@ -248,29 +244,34 @@ def test_from_arrays_decodes_like_jax(pair):
 
 
 def test_kernel_wrapper_runs_plain_version_on_cpu(pair):
+    """A codec on the CPU has no kernel and decodes with the plain
+    version; the kernel's launcher refuses CPU tensors."""
     _, pl = pair
-    assert isinstance(pl.kernel, BPCudaKernel) and pl.STRAGGLER_SLOTS == 1024
+    assert pl.kernel is None
     cw = torch.from_numpy(mixed_hard(pl, 12, n_rows=32))
     w = torch.from_numpy(mixed_soft(pl, 13, n_rows=32))
-    before = pl.kernel.launches
-    assert_same(pl.kernel.bp_packed_hard(cw, 50), pl._plain("hard", cw, 50))
-    assert_same(pl.kernel.bp_llr8_soft(w, 50), pl._plain("soft", w, 50))
-    assert pl.kernel.launches == before == 0    # no launch for CPU tensors
-    with pytest.raises(ValueError):
-        pl.kernel._launch(0, cw, None, pl.codeword_bytes, torch.uint8, 50)
+    assert_same(pl.decode_hard(cw), pl._plain("hard", cw, 50))
+    assert_same(pl.decode_soft(w), pl._plain("soft", w, 50))
+    kern = BPCudaKernel(pl.structure, "cpu")
+    llr = torch.full((pl.codeword_bits + 1, 4), 100, dtype=torch.int16)
+    for call in (lambda: kern.bp_packed_hard(cw, 50), lambda: kern.bp_llr8_soft(w, 50),
+                 lambda: kern.bp(llr, None, 50)):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            call()
+    assert kern.launches == 0
 
 
 def test_use_kernel_knob_and_gate():
-    pc = config_pair("128B-r12")[1]
-    assert LDPCCodec(dataclasses.replace(pc, use_kernel="off"), "cpu").kernel is None
-    with pytest.raises(ValueError):
-        LDPCCodec(dataclasses.replace(pc, use_kernel="on"), "cpu")
+    """The kernel's gate alone picks it; no config field does."""
+    assert not any("kernel" in f.name for f in dataclasses.fields(LdpcConfig))
     for name in ("128B-r12", "128B-qc", "default", "burst-cw7", "64B-r13",
                  "128B-r34-inner", "128B-qc-depth100"):
-        assert LDPCCodec(config_pair(name)[1], "cpu").kernel is not None, name
+        assert BPCudaKernel.supports(get_structure(config_pair(name)[1])), name
     inside = LDPCCodec(LdpcConfig(1024, LdpcRate.RATE_1_2), "cpu")
     outside = LDPCCodec(LdpcConfig(1024, LdpcRate.RATE_1_3), "cpu")
-    assert inside.kernel is not None and outside.kernel is None
+    assert BPCudaKernel.supports(inside.structure)
+    assert not BPCudaKernel.supports(outside.structure)
+    assert inside.kernel is None and outside.kernel is None     # on the CPU
     assert outside.H_info is None and outside.STRAGGLER_SLOTS == 256
 
 

@@ -3,9 +3,11 @@
 The same inputs, made with NumPy from a seed, go through
 libpoporon_tpu's `RSCodec(RSConfig(use_pallas="off"))` and the port's
 `RSCodec`; every output (ok, data, parity, corrected) must be equal, bit
-for bit.  On CPU tensors the port's kernel wrapper runs the plain PyTorch
-version, so these tests hold the kernel's plain version to the reference.
+for bit.  A codec on the CPU has no kernel and runs the plain PyTorch
+version, so these tests hold the kernels' plain version to the reference.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -19,7 +21,7 @@ from libpoporon_tpu.models.rs import RSCodec as JaxRSCodec  # noqa: E402
 
 from libpoporon_tpu_torch.config import RSConfig  # noqa: E402
 from libpoporon_tpu_torch.models.rs import ARRAY_NAMES, RSCodec  # noqa: E402
-from libpoporon_tpu_torch.models.rs_cuda import RSCudaDecoder  # noqa: E402
+from libpoporon_tpu_torch.models.rs_cuda import RSCudaDecoder, gf_tables  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -187,20 +189,24 @@ def test_from_arrays_decodes_like_jax(jax_rs):
 
 
 def test_kernel_wrapper_runs_plain_version_on_cpu(rs):
-    assert isinstance(rs.kernel, RSCudaDecoder)
+    """A codec on the CPU has no kernel and decodes with the plain
+    version; the kernels' launcher refuses CPU tensors."""
+    assert rs.kernel is None
     rng, data, parity = _inputs(rs, 70, 223, n_rows=16)
     bad, pbad = mixed_batch(rng, data, parity)
     d, p = torch.from_numpy(bad), torch.from_numpy(pbad)
-    before = rs.kernel.launches
     assert_same(rs.decode(d, p), rs._decode_plain(d, p))
-    assert rs.kernel.launches == before    # no launch for CPU tensors
-    with pytest.raises(ValueError):
-        rs.kernel._launch(0, d, p)
+    kern = RSCudaDecoder(gf_tables(rs), rs.num_roots, rs.k, rs.fcr, rs.prim, rs.prim_inv, "cpu")
+    for call in (lambda: kern.decode_plain(d, p), lambda: kern.syndromes(d, p),
+                 lambda: kern.reconstruct(torch.cat([d, p], 1).T, (0,))):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            call()
+    assert kern.launches == 0
 
 
 def test_use_kernel_knob():
-    assert RSCodec(RSConfig(use_kernel="off"), "cpu").kernel is None
-    assert RSCodec(RSConfig(symbol_size=4, generator_polynomial=0x13,
-                            num_roots=4), "cpu").kernel is None   # outside the gate
-    with pytest.raises(ValueError):
-        RSCodec(RSConfig(use_kernel="on"), "cpu")
+    """The kernels' gate alone picks them; no config field does."""
+    assert RSCudaDecoder.supports(RSCodec(RSConfig(), "cpu"))
+    small = RSCodec(RSConfig(symbol_size=4, generator_polynomial=0x13, num_roots=4), "cpu")
+    assert not RSCudaDecoder.supports(small) and small.kernel is None   # outside the gate
+    assert not any("kernel" in f.name for f in dataclasses.fields(RSConfig))

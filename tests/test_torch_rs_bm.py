@@ -39,6 +39,7 @@ from libpoporon_tpu.ops import gfbit  # noqa: E402
 
 from libpoporon_tpu_torch.config import RSConfig  # noqa: E402
 from libpoporon_tpu_torch.models.rs import RSCodec  # noqa: E402
+from libpoporon_tpu_torch.models.rs_cuda import gf_tables  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -227,7 +228,7 @@ def test_emulated_kernel_bm_matches_jax_locator(name, kind):
     want, want_start = jax_locator(jax_rs, s_norm, pos, cnt, pad)
     assert want.shape == (ROWS, nr + 1)
 
-    gf = KernelGF(rs.kernel.tables.numpy())
+    gf = KernelGF(gf_tables(rs))
     # step 1: the kernel reads log-form syndromes (fs = zero)
     s_log = rs.exp2log[torch.as_tensor(s_norm).long()].numpy()
     got = np.zeros_like(want)

@@ -19,6 +19,7 @@ from libpoporon_tpu.models.rs import RSCodec as JaxRSCodec  # noqa: E402
 
 from libpoporon_tpu_torch.config import RSConfig  # noqa: E402
 from libpoporon_tpu_torch.models.rs import RSCodec  # noqa: E402
+from libpoporon_tpu_torch.models.rs_cuda import RSCudaDecoder  # noqa: E402
 
 from test_torch_rs import assert_same, erasure_batch, mixed_batch  # noqa: E402
 
@@ -77,7 +78,7 @@ def test_nonprimitive_polynomial(path):
     The CUDA kernel's gate leaves such a field to the plain version."""
     kw = {"generator_polynomial": 0x11B}
     rs, jax_rs = RSCodec(RSConfig(**kw), "cpu"), JaxRSCodec(JaxRSConfig(use_pallas="off", **kw))
-    assert rs.kernel is None and RSCodec(RSConfig(), "cpu").kernel is not None
+    assert not RSCudaDecoder.supports(rs) and RSCudaDecoder.supports(RSCodec(RSConfig(), "cpu"))
     rng = np.random.default_rng(11)
     data = rng.integers(0, 256, (64, rs.k), dtype=np.uint8)
     parity = rs.encode(data).numpy()

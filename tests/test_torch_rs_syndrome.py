@@ -9,9 +9,9 @@ x^b; a step takes the top byte, shifts the words up a byte with the
 symbol entering byte 0 and XORs in T[top]; the tail XORs the entries of
 the remainder's 32 nibbles, accumulator byte j read as S_{16f+j}) must
 give the JAX package's `RSCodec._syndrome` exactly, over the configs
-chip_smoke.py holds the kernel to on the card; and
-`RSCudaDecoder.syndromes` on CPU tensors (the kernel's plain version) must
-give its log form.  Tolerance: exact.
+chip_smoke.py holds the kernel to on the card; and the codec's plain
+syndromes (`RSCodec._syndrome`, the kernel's plain version) in log form
+must give its log form.  Tolerance: exact.
 """
 
 import numpy as np
@@ -131,7 +131,7 @@ def emulate_kernel(tables: np.ndarray, nr: int, word: np.ndarray) -> np.ndarray:
 def test_emulated_kernel_loop_matches_jax_syndromes(name, which):
     rs, _ = _codecs(name)
     data, parity, want = _case(name, which)
-    tables = rs.kernel.syndrome_tables.numpy()
+    tables = syndrome_tables(rs.exp2log, rs.log2exp, rs.num_roots, rs.fcr, rs.prim).view(np.int32)
     got = emulate_kernel(tables, rs.num_roots, np.concatenate([data, parity], axis=1))
     assert got.shape == want.shape == (B, rs.num_roots)
     assert np.array_equal(got, want)
@@ -143,7 +143,7 @@ def test_syndromes_plain_version_is_log_of_jax(name):
     exp2log = np.asarray(jax_rs.gf.exp2log)
     for which in range(4):
         data, parity, want = _case(name, which)
-        got = rs.kernel.syndromes(torch.as_tensor(data), torch.as_tensor(parity))
+        got = rs.exp2log[rs._syndrome(torch.as_tensor(data), torch.as_tensor(parity)).long()]
         assert got.dtype == torch.int32
         assert np.array_equal(got.numpy(), exp2log[want])
         assert (got[:12] == 255).all()          # clean rows: the sentinel fs
@@ -176,7 +176,7 @@ def test_division_table_is_the_generator_polynomial(name):
     rs, _ = _codecs(name)
     mul, alog = _gf(rs)
     nr = rs.num_roots
-    tab = rs.kernel.syndrome_tables.numpy().view(np.uint8).reshape(-1, FACTOR_ENTRIES, 16)
+    tab = syndrome_tables(rs.exp2log, rs.log2exp, nr, rs.fcr, rs.prim)
     assert tab.shape[0] == -(-nr // FACTOR_ROOTS)
     g = [1]
     for f in range(tab.shape[0]):
@@ -194,20 +194,21 @@ def test_division_table_is_the_generator_polynomial(name):
 
 @pytest.mark.parametrize("nr", [10, 16, 20, 32, 33, 64])
 def test_syndrome_tables_layout(nr):
-    """Shape, dtype and byte size on the codec; each factor's tail entry
+    """Shape, dtype and byte size of the tables, and of the int32 words
+    the launcher stages from them; each factor's tail entry
     (2 b + h) 16 + u holds (u << 4h) b_i^b for its r_f roots and zeros past
     them; T_f[0] and the tail's u = 0 entries are zero; and the factors'
     roots are b_0..b_{nr-1} in order."""
     rs = RSCodec(RSConfig(num_roots=nr), "cpu")
     mul, alog = _gf(rs)
     F = -(-nr // FACTOR_ROOTS)
-    tab = rs.kernel.syndrome_tables
-    assert tab.dtype == torch.int32 and tab.is_contiguous()
-    assert tuple(tab.shape) == (F, FACTOR_ENTRIES, 4)
-    assert tab.numel() * 4 == F * (256 + 512) * 16
-    as_bytes = tab.numpy().view(np.uint32).view("<u1").reshape(F, FACTOR_ENTRIES, 16)
-    assert np.array_equal(as_bytes, syndrome_tables(rs.exp2log, rs.log2exp, nr, rs.fcr, rs.prim))
-    assert np.array_equal(_words(as_bytes), tab.numpy().view(np.uint32))
+    as_bytes = syndrome_tables(rs.exp2log, rs.log2exp, nr, rs.fcr, rs.prim)
+    assert as_bytes.dtype == np.uint8 and as_bytes.flags.c_contiguous
+    assert as_bytes.shape == (F, FACTOR_ENTRIES, 16)
+    assert as_bytes.nbytes == F * (256 + 512) * 16
+    tab = as_bytes.view(np.int32)          # RSCudaDecoder.syndrome_tables' words
+    assert tab.shape == (F, FACTOR_ENTRIES, 4)
+    assert np.array_equal(_words(as_bytes), tab.view(np.uint32))
     for f in range(F):
         r_f = min(FACTOR_ROOTS, nr - FACTOR_ROOTS * f)
         assert not as_bytes[f, 0].any()
