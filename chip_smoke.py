@@ -89,6 +89,7 @@ card: the multi-card check, for a machine with several cards.
 from __future__ import annotations
 
 import json
+import re
 import sys
 import time
 from pathlib import Path
@@ -165,6 +166,35 @@ def max_abs_err(got, want) -> int:
     import torch
     return max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
                if a.numel() else 0 for a, b in zip(got, want))
+
+
+PTXAS_KERNELS = ("rs_decode_kernel", "rs_stripe_kernel")
+
+
+def ptxas_report(lines) -> dict:
+    """Each form of the kernels PTXAS_KERNELS (`rs_decode_kernel<false>`
+    and so on) -> its registers, stack frame, spill stores and loads and
+    static shared bytes, from the build's `-Xptxas=-v` lines."""
+    out, cur = {}, None
+    for ln in lines:
+        m = re.search(r"Compiling entry function '\w*?\d(rs_[a-z]+_kernel)ILb([01])E", ln)
+        if "Compiling entry function" in ln:
+            cur = None
+            if m and m[1] in PTXAS_KERNELS:
+                cur = f"{m[1]}<{'true' if m[2] == '1' else 'false'}>"
+                out[cur] = {}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            out[cur].update(stack=int(m[1]), spill_stores=int(m[2]), spill_loads=int(m[3]))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            smem = re.search(r"(\d+) bytes smem", ln)
+            out[cur].update(registers=int(m[1]), static_smem=int(smem[1]) if smem else 0)
+    return out
 
 
 def corrupt(rng, data, parity, nerr, junk_rows=0, parity_only_rows=0):
@@ -1538,6 +1568,12 @@ def main(argv=None) -> int:
     ptxas = [ln.strip() for ln in so.with_suffix(".log").read_text().splitlines()
              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     log({"phase": "build", "seconds": build_s, "library": so.name, "ptxas": ptxas})
+    forms = ptxas_report(ptxas)
+    check(len(forms) == 4, f"ptxas lines for {sorted(forms)}, not the decode and stripe "
+                           "kernels' two forms each")
+    for name, f in forms.items():
+        check(f.get("spill_stores") == 0 and f.get("spill_loads") == 0,
+              f"ptxas: {name} spills ({f})")
     if "--stripe-only" in argv:
         # phase 15 alone
         entry = stripe_phase(pt, torch.device("cuda"), np.random.default_rng(15),
@@ -1577,6 +1613,13 @@ def main(argv=None) -> int:
     log({"phase": "main_path", "batch": BATCH, "seconds_with_transfers": main_s,
          "launches": launches, "syndrome_launches": syn_launches, "all_ok": True,
          "corrected": 2})
+    shape = {}
+    for form, erasure in (("rs_decode_kernel<false>", False), ("rs_decode_kernel<true>", True)):
+        per_sm, smem, carveout = kern.decode_shape(dev, erasure)
+        shape[form] = {"dynamic_smem": smem, "blocks_per_sm": per_sm, "carveout_pct": carveout,
+                       **forms[form]}
+    log({"phase": "rs_decode_shape", "nr": rs.num_roots, **shape,
+         "rs_stripe_kernel": {k: v for k, v in forms.items() if "stripe" in k}})
     if "--parallel-only" in argv:
         # phases 13 and 14 alone on the inputs of phases 2 and 5, for a
         # machine with several cards
@@ -1619,6 +1662,30 @@ def main(argv=None) -> int:
         cases += 1
         check(err == 0, f"kernel != plain in {tag} (max abs err {err})")
 
+    def edge_cases(tag, rs_, erng):
+        """The decode kernel in all three modes at the edges of its tiles and
+        copies: B = 1, 127 (a tile short of a row) and 129 (a tile and a
+        row), a shortened code (size < k), each on the batch's first rows and
+        on a view from row 1 (data off 16-byte alignment; parity, syndromes
+        and erasure positions too where nr is not a multiple of 4)."""
+        nr, k = rs_.num_roots, rs_.k
+        for B, size in ((1, k), (127, k), (129, k), (129, k // 2 + 1)):
+            d = erng.integers(0, 256, (B + 1, size), dtype=np.uint8)
+            p = rs_.encode(d).cpu().numpy()
+            bd, bp = corrupt(erng, d, p, erng.integers(0, nr // 2 + 2, B + 1))  # clean .. t + 1
+            bd_t, bp_t = torch.as_tensor(bd, device=dev), torch.as_tensor(bp, device=dev)
+            sl = rs_kernel.plain_syndromes(rs_, bd_t, bp_t).to(torch.int32)
+            E = min(nr, 8, size)
+            be, pos, cnt = erasure_case(erng, d, E, min(1, (nr - E) // 2))
+            be_t, pos_t, cnt_t = (torch.as_tensor(a, device=dev) for a in (be, pos, cnt))
+            for rows, view in ((slice(0, B), ""), (slice(1, B + 1), " view")):
+                where = f"{tag} B={B} size={size}{view}"
+                compare(f"{where} plain", rs_, "plain", bd_t[rows], bp_t[rows])
+                compare(f"{where} ext", rs_, "ext", bd_t[rows], bp_t[rows], sl[rows])
+                compare(f"{where} erasure E={E}", rs_, "erasure", be_t[rows], bp_t[rows],
+                        pos_t[rows], cnt_t[rows])
+
+    edge_rng = np.random.default_rng(3)   # its own, so that the later phases' inputs stay
     configs = [
         ("default", pt.rs_config_default()),
         ("fcr0", pt.RSConfig(first_consecutive_root=0)),
@@ -1671,6 +1738,8 @@ def main(argv=None) -> int:
             for extra in ((nr - E) // 2, (nr - E) // 2 + 1):
                 be, pos, cnt = erasure_case(rng, d, E, extra)
                 compare(f"{name} erasure E={E}+{extra} B={B}", rs_, "erasure", be, p, pos, cnt)
+        if name in ("default", "nr16", "nr64"):
+            edge_cases(name, rs_, edge_rng)
     # the syndrome kernel alone at the ends of its adaptation: nr = 1 (one
     # factor, 15 bytes of its divisor a power of x) and nr = 33 (three
     # factors, one copy of T), beside nr = 16 (one factor, eight copies)
@@ -1688,6 +1757,7 @@ def main(argv=None) -> int:
             compare_syndromes(f"nr{nr} B={B} size={size}", rs_, bd_t, bp_t)
             if B > 1:
                 compare_syndromes(f"nr{nr} B={B - 1} size={size} view", rs_, bd_t[1:], bp_t[1:])
+        edge_cases(f"nr{nr}", rs_, edge_rng)
     log({"phase": "kernel_vs_plain", "cases": cases, "max_abs_err": max_err,
          "syndrome_cases": syn_cases, "syndrome_max_abs_err": syn_err})
     # ROADMAP F8: 0x11B (x of order 51) passes GF's check, but its log

@@ -23,12 +23,13 @@ turns (one package of a name per process).
 `--breakdown`: builds an instrumented copy of the imported package's
 csrc/rs_decode.cu under its build/breakdown/ (the package's own library is
 not touched), in which every thread of the decode kernel reads clock64()
-where each stage begins (`LABELS`: staging the rows in; in `decode_row`
-the log-form syndromes read, the erasure locator, BM, degree and Chien,
-Omega and Forney, verify and apply; the wait at the block's barrier;
-the rows written back), charging the cycles since the last reading to
-the stage it leaves, so that a row that returns early charges its last
-stage.  One lane of each warp adds the warp's sums.  It prints the cycles
+where each stage begins (`LABELS`: the tables in, and the warp's copy
+of its rows through after its sweep; the block's log-form syndromes
+read in and turned into bytes; the erasure locator, BM, degree and
+Chien, Omega and Forney, verify and apply; the waits at the block's two
+barriers), charging the cycles since the last reading to the stage it
+leaves, so that a row that returns early charges its last stage.  One
+lane of each warp adds the warp's sums.  It prints the cycles
 a codeword spends in each stage for the 2-error rows (`k3_ext`), the
 Binomial rows (`k3_binomial`) and the 32-erasure rows (`k2_erasure_32`),
 and each stage's ms: its share of the cycles times the uninstrumented
@@ -190,32 +191,31 @@ struct PPStamps {
 """
 
 # The stages, in the order of their indices in the stamped copy.
-LABELS = ("stage_in", "syndromes", "erasure_locator", "bm", "degree_chien",
-          "omega_forney", "verify_apply", "wait", "stage_out")
+LABELS = ("copy_through", "syndromes", "erasure_locator", "bm", "degree_chien",
+          "omega_forney", "verify_apply", "wait")
 # (pattern, replacement) pairs that place the stamps; each pattern must
 # match once.  locate_row and finish_row get the kernel's stamps as a last
 # argument; the Chien sweep, which every thread of a warp runs, is charged
-# to "degree_chien" on every thread.
+# to "degree_chien" on every thread; the waits at the block's two barriers
+# to "wait".
 ANCHORS = [
     (r"(#include <cuda_runtime.h>\n)", r"\1" + _PRELUDE.replace("\\", "\\\\")),
-    (r"(uint8_t\* el, bool\* ok)\) \{\n", r"\1, PPStamps& pp) {\n"),
+    (r"(const uint8_t\* S,\n\s+uint8_t\* el)\) \{\n", r"\1, PPStamps& pp) {\n"),
     (r"(\n  // 2\. Start locator)", r"\n  pp.stage(2);\1"),
     (r"(\n  // 3\. Berlekamp-Massey)", r"\n  pp.stage(3);\1"),
     (r"(\n  // 4\. Degree)", r"\n  pp.stage(4);\1"),
-    (r"(uint8_t\* word, long long row, int\* corrected)\) \{\n",
-     r"\1, PPStamps& pp) {\n"),
+    (r"(Apply apply, int\* corrected)\) \{\n", r"\1, PPStamps& pp) {\n"),
     (r"(\n  // 6\. Omega)", r"\n  pp.stage(5);\1"),
     (r"(\n  // 8\. Verify)", r"\n  pp.stage(6);\1"),
-    (r"(  __shared__ uint8_t s_rows\[kThreads \* kRowStride\];\n)", r"\1  PPStamps pp;\n"),
-    (r"(  stage_rows<kThreads>\(p\.parity \+ row0 \* nr, nr, rows, s_rows, size\);\n"
-     r"  __syncthreads\(\);\n)", r"\1  pp.stage(1);\n"),
-    (r"(S, el, &ok)\);\n", r"\1, pp);\n"),
-    (r"(  chien_sweep\(gf, el, deg, hits\);\n)", r"  pp.stage(4);\n\1"),
+    (r"(  extern __shared__ __align__\(16\) uint8_t s_syn\[\];[^\n]*\n)", r"\1  PPStamps pp;\n"),
+    (r"(  __syncthreads\(\);  // tables in, flags cleared\n)",
+     r"  pp.stage(7);\n\1  pp.stage(1);\n"),
+    (r"(  __syncthreads\(\);  // syndromes in\n)", r"  pp.stage(7);\n\1  pp.stage(2);\n"),
+    (r"(row, S, el)\);\n", r"\1, pp);\n"),
+    (r"(  chien_sweep\(gf, el, deg, hits\);\n)", r"  pp.stage(4);\n\1  pp.stage(0);\n"),
+    (r"(  __syncwarp\(\);\n)", r"\1  pp.stage(4);\n"),
     (r"(&corrected)\);\n", r"\1, pp);\n"),
-    (r"(    p\.corrected_out\[row\] = corrected;\n  \}\n)(  __syncthreads\(\);\n)",
-     r"\1  pp.stage(7);\n\2  pp.stage(8);\n"),
-    (r"(    pdst\[i\] = s_rows\[r \* kRowStride \+ size \+ \(i - r \* nr\)\];\n  \}\n)(\}\n)",
-     r"\1  pp.flush();\n\2"),
+    (r"(    p\.corrected_out\[row\] = corrected;\n  \}\n)(\}\n)", r"\1  pp.flush();\n\2"),
 ]
 
 
@@ -253,15 +253,17 @@ def instrumented_library() -> ctypes.CDLL:
     return lib
 
 
-def breakdown(timed, common) -> None:
+def breakdown(timed, common, kern) -> None:
     """The stage split of the decode kernel for the 2-error and the
     Binomial rows (ext mode) and the 32-erasure rows, from the stamped
-    copy."""
+    copy; kern is the launcher the entries call."""
     ms = {name: time_ms(fn, *args) for name, (fn, _, args) in timed.items()}
     decode_ms = {"k3_ext": ms["k3_ext"], "k3_binomial": ms["k3_binomial"],
                  "k2_erasure_32": ms["k2_erasure_32"] - ms["syndromes"]}
     lib = instrumented_library()
     build.load_library = lambda: lib     # the wrappers now launch the stamped copy
+    kern._decode_shapes.clear()          # whose kernels get their own launch shapes
+    kern._syndrome_shapes.clear()
     for name in ("k3_ext", "k3_binomial", "k2_erasure_32"):
         fn, _, args = timed[name]
         fn(*args)                        # warm-up
@@ -333,7 +335,7 @@ def main(argv=None) -> int:
         log({"bench": f"rs_{name}", "ms": ms, "runs_ms": t,
              "codewords_per_s": BATCH / ms * 1e3, **common})
     if opts.breakdown:
-        breakdown(timed, common)
+        breakdown(timed, common, codec._rs.kernel)
     return 0
 
 

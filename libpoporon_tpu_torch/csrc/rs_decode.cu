@@ -51,24 +51,47 @@
 //   funnel shift.  The tile's logs go back over its buffer as bytes, and
 //   out as int32 with 16-byte stores.
 
-// Decode.  What bounds it: for rows with errors, BM, Chien over the 255
-// points, Forney and verify, each GF product two shared-memory table loads
-// and a few integer ops, on state in local memory; not HBM (67 to 84 MB
-// at B = 131072, about 0.025 ms).
+// Decode.  What bounds it: the instruction rate of BM, Chien over the 255
+// points, Forney and verify (each GF product two shared-memory table loads
+// and a few integer ops; all a thread a row but Chien, so a warp waits for
+// its worst row), on per-row state (el, bp, roots, locations, Omega,
+// coefficients) in local memory; not HBM (67 to 84 MB at B = 131072, about
+// 0.025 ms).  The design spends the block's shared memory on what the
+// kernel reads many times, the syndromes, gives the rest of the SM's 256
+// KB to L1, and so holds 9 blocks an SM in place of 6: on Binomial rows
+// BM, Chien, Forney and verify are 80% of the cycles.
 // - One thread per codeword for every stage but Chien, 128 threads per
 //   block, grid ceil(B / 128); the ragged last block is masked here, so
-//   the host pads nothing.
-// - The block stages its 128 rows (data, then parity) into shared memory
-//   with coalesced 16-byte loads (`stage_rows`), each thread decodes its
-//   own row in place, and the block copies
-//   the rows back with coalesced byte stores: the counterpart of
-//   the in-kernel transposes at rs_pallas.py:176-187 and 494-505.  Rows are
-//   260 bytes apart (65 words), so the threads of a warp reading symbol j
-//   of their own rows hit 32 different banks.
+//   the host pads nothing.  56 registers, 9 blocks an SM (the launch bound
+//   asks for 8: B = 131072's 1,024 blocks in one wave of 132 SMs).
+// - Rows are copied through, never staged (`copy_through`): a warp's 32
+//   rows of data are one contiguous range of 32 size bytes, their parity
+//   another of 32 nr, each a multiple of 16, and after its Chien sweep the
+//   warp copies both to data_out and parity_out with 16-byte loads and
+//   stores, a funnel shift where the input lies otherwise than the output
+//   modulo 16.  After __syncwarp each owner writes its row's corrections,
+//   output byte = input byte XOR coefficient (`finish_row`'s apply): about
+//   2 bytes a row.  Copied there, and not by the block before its first
+//   barrier, the rows move while other warps compute; with every block of
+//   the wave copying at once at the start, the copy was 17% of the cycles
+//   on Binomial rows, and 7% here (0.203 against 0.193 ms).  The
+//   counterpart of the in-kernel transposes at rs_pallas.py:176-187 and
+//   494-505, without a shared copy of the rows.
+// - The tile's log-form syndromes, rows x nr int32 in one contiguous
+//   range, come in with 16-byte loads and are turned once into bytes in
+//   shared memory (`stage_syndromes`), a row every `syndrome_stride(nr)`
+//   bytes, an odd count of words, so that the 32 rows of a warp, each
+//   thread at its own byte, fall in 32 banks; BM, Omega and the verify
+//   read S there.  (Each thread read its own row's 32 logs, 128 bytes
+//   apart, so that every warp load touched 32 lines: 13% of the cycles.)
 // - log, antilog, sec and inv tables sit in shared memory (4 x 256 ints).
-// - Per-thread state (syndromes, locator, roots, corrections; nr <= 64)
-//   lives in small local arrays.
-// - A row without syndrome errors is left untouched as soon as that is
+// - What is left of shared memory an SM is L1: the launcher sets the
+//   kernel's carveout once a card (`pp_rs_decode_shape`), the least that
+//   keeps its blocks an SM (39% at nr = 32).  At nr = 32: 4,608 bytes of
+//   syndromes and 4,480 of tables and flags a block, against 37,632 with
+//   the rows.  The per-row state stays in local memory (336 bytes a
+//   thread, from 416 with S).
+// - A row without syndrome errors is left as copied as soon as that is
 //   known; a row that fails a pre-check skips Forney.
 // - The erasure apply follows the XLA path (rs.py:534-542), not the
 //   Pallas kernel: locator slots past the E given positions read position
@@ -98,14 +121,15 @@
 // hold; one ballot a step gives the roots in scan order.  What bounds it:
 // the antilog gathers (a lane-strided exponent, so 2^k-way bank conflicts
 // for even j; a byte-wide table measured no faster) and about five
-// integer instructions a term-step.  Its measure, the decode kernel alone at
-// B = 131072 (ext mode; H100 80GB HBM3, 700 W): Binomial rows 0.635 ->
-// 0.302 ms, two errors a row 0.283 -> 0.190 ms, 32 erasures (both
-// launches) 2.930 -> 2.395 ms.  The roots, their order, found and
+// integer instructions a term-step.  The roots, their order, found and
 // fail_pad are the scan's, bit for bit (tests/test_torch_rs_chien.py
-// emulates the sweep against the JAX Chien).  ptxas: 78 registers (80 in
-// erasure mode), a 416-byte stack frame (480), no spills; 6 blocks an SM,
-// as before, by both registers and shared memory.
+// emulates the sweep against the JAX Chien).
+//
+// Measured, the decode kernel alone at B = 131072 (ext mode; H100 80GB
+// HBM3, 700 W): Binomial rows 0.635 ms with a thread's Chien, 0.302 with
+// the warp's and the rows staged in shared memory, 0.193 with the
+// syndromes there and the rows copied through; two errors a row 0.190 ->
+// 0.116 ms, 32 erasures (both launches) 2.24 -> 1.49 ms.
 
 #include <cstdint>
 
@@ -119,9 +143,15 @@ using gf8::kFs;
 
 constexpr int kThreads = 128;    // codewords per block of the decode kernel
 constexpr int kMaxRoots = 64;    // nr limit of the per-thread arrays
-constexpr int kRowStride = 260;  // bytes between staged rows
 constexpr int kSweepSteps = 8;   // Chien points a lane: 32 lanes x 8 >= fs
 constexpr unsigned kFullWarp = 0xffffffffu;
+
+// Bytes between two rows' syndromes in the decode kernel's shared memory:
+// the least odd count of words that holds nr bytes.
+__host__ __device__ constexpr int syndrome_stride(int nr) { return 4 * (((nr + 3) / 4) | 1); }
+
+// The decode kernel's dynamic shared bytes a block: its rows' syndromes.
+__host__ __device__ constexpr int decode_smem(int nr) { return kThreads * syndrome_stride(nr); }
 
 struct Params {
   const uint8_t* data;      // [B, size]
@@ -154,29 +184,16 @@ __device__ __forceinline__ int erasure_slot(const int32_t* pos, int width,
   return t < width ? pos[t] : 0;
 }
 
-// Steps 1 to 4 of error_correction_u8 (decode.c:17-230) for one row: the
-// syndromes S and the locator el (nr + 1 slots) from its log-form
-// syndromes.  Returns the locator's degree; where that is 0 the row ends
-// here and *ok says how: true for a row without syndrome errors, false
-// for a locator of degree 0 (fail_deg).
+// Steps 2 to 4 of error_correction_u8 (decode.c:17-230) for a row with
+// syndrome errors: the locator el (nr + 1 slots) from its syndromes S
+// (step 1, the caller's, as bytes).  Returns the locator's degree; a row
+// of degree 0 ends here, not ok (fail_deg).
 template <bool ERASURE>
 __device__ __forceinline__ int locate_row(const Params& p, const gf8::Tables& gf,
-                                          const int* inv, long long row, uint8_t* S,
-                                          uint8_t* el, bool* ok) {
+                                          const int* inv, long long row, const uint8_t* S,
+                                          uint8_t* el) {
   const int nr = p.nr;
   const int pad = kFs - p.size - nr;
-
-  // 1. Syndromes S_i = sum_j r_j alpha^{va_i (n-1-j)}, given in log form
-  //    (sentinel fs = no error; a log outside [0, fs] reads as zero).
-  bool has_err = false;
-  const int32_t* sl = p.s_log + row * nr;
-  for (int i = 0; i < nr; ++i) {
-    const int v = sl[i];
-    has_err |= v != kFs;
-    S[i] = (v >= 0 && v <= kFs) ? gf.antilog[v] : 0;
-  }
-  *ok = !has_err;
-  if (!has_err) return 0;
 
   // 2. Start locator: 1, or the erasure-locator product.
   uint8_t bp[kMaxRoots + 1];
@@ -297,15 +314,15 @@ __device__ __forceinline__ void chien_sweep(const gf8::Tables& gf, const uint8_t
 }
 
 // Steps 5 to 9 for a row whose locator el of degree deg >= 1 the warp
-// swept into hits: corrects `word` (size data symbols, then nr parity
-// symbols) in place where the XLA path would, and returns ok; *corrected
-// gets the count.
-template <bool ERASURE>
+// swept into hits: returns ok, gives *corrected the count, and hands each
+// correction the XLA path would make to apply(j, c), symbol j of the word
+// (size data symbols, then nr parity symbols) XORed with the byte c.
+template <bool ERASURE, class Apply>
 __device__ __forceinline__ bool finish_row(const Params& p, const gf8::Tables& gf,
                                            const int* sec, const int* inv, const int* va,
                                            const uint8_t* S, const uint8_t* el, int deg,
-                                           const uint32_t (&hits)[kSweepSteps],
-                                           uint8_t* word, long long row, int* corrected) {
+                                           const uint32_t (&hits)[kSweepSteps], long long row,
+                                           Apply apply, int* corrected) {
   const int nr = p.nr, size = p.size, n = size + nr;
   const int pad = kFs - n;
   *corrected = 0;
@@ -375,7 +392,7 @@ __device__ __forceinline__ bool finish_row(const Params& p, const gf8::Tables& g
       int sum = 0;
       for (int u = t; u < deg; ++u)
         if (erasure_slot(pos, width, u) == pt) sum += coef[u];
-      word[pt] ^= (uint8_t)sum;
+      apply(pt, sum & 0xFF);
     }
     return true;
   }
@@ -384,58 +401,133 @@ __device__ __forceinline__ bool finish_row(const Params& p, const gf8::Tables& g
   for (int t = 0; t < deg; ++t) {
     const int lp = loc[t] - pad;
     if (lp < 0 || lp >= n) return false;
-    word[lp] ^= coef[t];
+    apply(lp, coef[t]);
   }
   return true;
 }
 
-// Copies `rows` rows of a packed [rows, width] byte matrix at `src` into
-// shared rows kRowStride bytes apart, from column `col`, with NT threads:
-// coalesced 16-byte loads, each spread over the rows its bytes fall in;
-// the bytes before src's first 16-byte boundary and after the last whole
-// 16 go one at a time.
+// 16-byte loads a thread has in flight at once in the two copies below:
+// each batch is loaded whole before any of it is stored, since the
+// compiler cannot tell that the stores miss the loads' source.  The rows'
+// copy runs beside the per-row state (4 took 69 registers in place of
+// 56, and two blocks an SM); the syndromes' before it, where 8 at nr = 32
+// is a thread's whole share in one batch.
+constexpr int kCopyBatch = 2;
+constexpr int kSynBatch = 8;
+
+// Copies bytes [0, total) of src to dst with the block's kThreads threads,
+// 16 bytes a load and a store: dst's bytes before its first 16-byte
+// boundary and after its last go one at a time, and each 16 bytes of dst
+// between is built from the two 16-byte words of src that hold it, by a
+// funnel shift where src lies otherwise than dst modulo 16.
 template <int NT>
-__device__ __forceinline__ void stage_rows(const uint8_t* src, int width, int rows,
-                                           uint8_t* dst, int col) {
-  const int tid = threadIdx.x;
-  const int total = rows * width;
-  int head = (int)((16 - (reinterpret_cast<uintptr_t>(src) & 15)) & 15);
+__device__ __forceinline__ void copy_through(const uint8_t* src, uint8_t* dst, int total, int t) {
+  int head = (int)((16 - (reinterpret_cast<uintptr_t>(dst) & 15)) & 15);
   if (head > total) head = total;
   const int vecs = (total - head) >> 4;
   const int tail = head + (vecs << 4);
-  for (int i = tid; i < head; i += NT) {
-    const int r = i / width;
-    dst[r * kRowStride + col + i - r * width] = src[i];
-  }
-  for (int i = tail + tid; i < total; i += NT) {
-    const int r = i / width;
-    dst[r * kRowStride + col + i - r * width] = src[i];
-  }
-  const uint4* vsrc = reinterpret_cast<const uint4*>(src + head);
-#pragma unroll 4
-  for (int k = tid; k < vecs; k += NT) {
-    const uint4 v = vsrc[k];
-    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-    const int i = head + (k << 4);
-    const int r = i / width;
-    int c = i - r * width;
-    uint8_t* d = dst + r * kRowStride + col;
+  for (int i = t; i < head; i += NT) dst[i] = src[i];
+  for (int i = tail + t; i < total; i += NT) dst[i] = src[i];
+  const uintptr_t at = reinterpret_cast<uintptr_t>(src + head);
+  const int shift = (int)(at & 15);
+  const uint4* vs = reinterpret_cast<const uint4*>(at - shift);
+  uint4* vd = reinterpret_cast<uint4*>(dst + head);
+  if (shift == 0) {
+    for (int k0 = t; k0 < vecs; k0 += kCopyBatch * NT) {
+      uint4 v[kCopyBatch];
 #pragma unroll
-    for (int e = 0; e < 16; ++e) {
-      d[c] = (uint8_t)(w[e >> 2] >> (8 * (e & 3)));
-      if (++c == width) {
-        c = 0;
-        d += kRowStride;
+      for (int u = 0; u < kCopyBatch; ++u)
+        if (k0 + u * NT < vecs) v[u] = vs[k0 + u * NT];
+#pragma unroll
+      for (int u = 0; u < kCopyBatch; ++u)
+        if (k0 + u * NT < vecs) vd[k0 + u * NT] = v[u];
+    }
+    return;
+  }
+  // vd[k] is bytes shift..shift+15 of vs[k], vs[k + 1]: words q..q+4 of
+  // the pair, shifted right by sh bits (q uniform, so selects, not an
+  // indexed local array)
+  const int q = shift >> 2;
+  const uint32_t sh = 8 * (shift & 3);
+  for (int k0 = t; k0 < vecs; k0 += kCopyBatch * NT) {
+    uint4 a[kCopyBatch], b[kCopyBatch];
+#pragma unroll
+    for (int u = 0; u < kCopyBatch; ++u) {
+      const int k = k0 + u * NT;
+      if (k < vecs) {
+        a[u] = vs[k];
+        b[u] = vs[k + 1];
       }
+    }
+#pragma unroll
+    for (int u = 0; u < kCopyBatch; ++u) {
+      const int k = k0 + u * NT;
+      if (k >= vecs) continue;
+      const uint32_t w[8] = {a[u].x, a[u].y, a[u].z, a[u].w, b[u].x, b[u].y, b[u].z, b[u].w};
+      uint32_t o[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint32_t lo = q == 0 ? w[j] : q == 1 ? w[j + 1] : q == 2 ? w[j + 2] : w[j + 3];
+        const uint32_t hi = q == 0 ? w[j + 1] : q == 1 ? w[j + 2] : q == 2 ? w[j + 3] : w[j + 4];
+        o[j] = __funnelshift_r(lo, hi, sh);
+      }
+      vd[k] = make_uint4(o[0], o[1], o[2], o[3]);
+    }
+  }
+}
+
+// Turns the block's log-form syndromes, rows x nr int32 at src, into byte
+// syndromes, row r at syn + r * syndrome_stride(nr), with 16-byte loads
+// from src's first 16-byte boundary (the ints before it and after the last
+// whole 16 bytes one at a time).  Step 1's rules: S_i = antilog[v] for a
+// log v in [0, fs] and 0 outside it; err[r] is set for a row with any
+// v != fs (the sentinel fs = no error), so that a log outside the range
+// still counts as an error.
+__device__ __forceinline__ void stage_syndromes(const int32_t* src, int nr, int rows,
+                                                const int* antilog, uint8_t* syn,
+                                                uint8_t* err) {
+  const int tid = threadIdx.x;
+  const int total = rows * nr;
+  const int stride = syndrome_stride(nr);
+  // row of element e < 2^16: (e m) >> 32, m = 2^32 / nr + 1 (exact: e (m nr
+  // - 2^32) <= e nr < 2^32)
+  const unsigned long long m = (1ull << 32) / (unsigned)nr + 1;
+  const auto put = [&](int e, int v) {
+    const int r = (int)(((unsigned long long)e * m) >> 32);
+    syn[r * stride + e - r * nr] = (uint8_t)((v >= 0 && v <= kFs) ? antilog[v] : 0);
+    if (v != kFs) err[r] = 1;
+  };
+  int head = (int)(((16 - (reinterpret_cast<uintptr_t>(src) & 15)) & 15) >> 2);
+  if (head > total) head = total;
+  const int vecs = (total - head) >> 2;
+  const int tail = head + (vecs << 2);
+  for (int e = tid; e < head; e += kThreads) put(e, src[e]);
+  for (int e = tail + tid; e < total; e += kThreads) put(e, src[e]);
+  const int4* vs = reinterpret_cast<const int4*>(src + head);
+  for (int k0 = tid; k0 < vecs; k0 += kSynBatch * kThreads) {
+    int4 v[kSynBatch];
+#pragma unroll
+    for (int u = 0; u < kSynBatch; ++u)
+      if (k0 + u * kThreads < vecs) v[u] = vs[k0 + u * kThreads];
+#pragma unroll
+    for (int u = 0; u < kSynBatch; ++u) {
+      const int k = k0 + u * kThreads;
+      if (k >= vecs) continue;
+      const int e = head + 4 * k;
+      put(e, v[u].x);
+      put(e + 1, v[u].y);
+      put(e + 2, v[u].z);
+      put(e + 3, v[u].w);
     }
   }
 }
 
 template <bool ERASURE>
-__global__ void __launch_bounds__(kThreads) rs_decode_kernel(const Params p) {
+__global__ void __launch_bounds__(kThreads, 8) rs_decode_kernel(const Params p) {
   __shared__ int s_tab[4 * 256];
   __shared__ int s_va[kMaxRoots];
-  __shared__ uint8_t s_rows[kThreads * kRowStride];
+  __shared__ uint8_t s_err[kThreads];
+  extern __shared__ __align__(16) uint8_t s_syn[];  // [kThreads][syndrome_stride(nr)]
 
   const int tid = threadIdx.x;
   const long long row0 = (long long)blockIdx.x * kThreads;
@@ -446,40 +538,52 @@ __global__ void __launch_bounds__(kThreads) rs_decode_kernel(const Params p) {
   for (int i = tid; i < 4 * 256; i += kThreads) s_tab[i] = p.tables[i];
   // verify-stage row constants a_i = ((fcr + i) * prim) mod fs
   for (int i = tid; i < nr; i += kThreads) s_va[i] = ((p.fcr + i) * p.prim) % kFs;
-  stage_rows<kThreads>(p.data + row0 * size, size, rows, s_rows, 0);
-  stage_rows<kThreads>(p.parity + row0 * nr, nr, rows, s_rows, size);
-  __syncthreads();
+  s_err[tid] = 0;
+  __syncthreads();  // tables in, flags cleared
+  stage_syndromes(p.s_log + row0 * nr, nr, rows, s_tab + 256, s_syn, s_err);
+  __syncthreads();  // syndromes in
 
   // Every thread goes through the Chien sweep, those past the last row
   // too: it is the whole warp's.
   const gf8::Tables gf{s_tab, s_tab + 256};
   const bool live = tid < rows;
   const long long row = row0 + tid;
-  uint8_t S[kMaxRoots], el[kMaxRoots + 1];
-  bool ok = true;
+  const uint8_t* S = s_syn + tid * syndrome_stride(nr);
+  uint8_t el[kMaxRoots + 1];
+  const bool has_err = live && s_err[tid];
   int deg = 0;
-  if (live) deg = locate_row<ERASURE>(p, gf, s_tab + 768, row, S, el, &ok);
+  if (has_err) deg = locate_row<ERASURE>(p, gf, s_tab + 768, row, S, el);
   uint32_t hits[kSweepSteps];
   chien_sweep(gf, el, deg, hits);
+  // The warp's rows copied through: a warp past the last row has none.
+  const int lane = tid & 31;
+  const int wrow = tid - lane;
+  const int wrows = rows - wrow < 32 ? (rows - wrow > 0 ? rows - wrow : 0) : 32;
+  copy_through<32>(p.data + (row0 + wrow) * size, p.data_out + (row0 + wrow) * size,
+                   wrows * size, lane);
+  copy_through<32>(p.parity + (row0 + wrow) * nr, p.parity_out + (row0 + wrow) * nr,
+                   wrows * nr, lane);
+  __syncwarp();
   if (live) {
+    bool ok = !has_err;  // no syndrome errors, or (degree 0) fail_deg
     int corrected = 0;
-    if (deg > 0)
-      ok = finish_row<ERASURE>(p, gf, s_tab + 512, s_tab + 768, s_va, S, el, deg, hits,
-                               s_rows + tid * kRowStride, row, &corrected);
+    if (deg > 0) {
+      const uint8_t* din = p.data + row * size;
+      const uint8_t* pin = p.parity + row * nr;
+      uint8_t* dout = p.data_out + row * size;
+      uint8_t* pout = p.parity_out + row * nr;
+      // the input byte XOR c over the copy, which __syncwarp put before this
+      const auto fix = [=](int j, int c) {
+        if (j < size)
+          dout[j] = din[j] ^ c;
+        else
+          pout[j - size] = pin[j - size] ^ c;
+      };
+      ok = finish_row<ERASURE>(p, gf, s_tab + 512, s_tab + 768, s_va, S, el, deg, hits, row, fix,
+                               &corrected);
+    }
     p.ok_out[row] = ok;
     p.corrected_out[row] = corrected;
-  }
-  __syncthreads();
-
-  uint8_t* ddst = p.data_out + row0 * size;
-  for (int i = tid; i < rows * size; i += kThreads) {
-    const int r = i / size;
-    ddst[i] = s_rows[r * kRowStride + (i - r * size)];
-  }
-  uint8_t* pdst = p.parity_out + row0 * nr;
-  for (int i = tid; i < rows * nr; i += kThreads) {
-    const int r = i / nr;
-    pdst[i] = s_rows[r * kRowStride + size + (i - r * nr)];
   }
 }
 
@@ -879,7 +983,7 @@ __device__ __forceinline__ uint32_t stripe_map(const StripeParams& p, const int*
 
 // The columns of `todo` through the decode kernel's steps 1 to 9, one a
 // thread at a time: the column's bytes read again, the lost cells as
-// zeros, its syndromes into a row of log-form syndromes, and `q`, the
+// zeros, its syndromes as bytes, and `q`, the
 // kernel's parameters for a one-row batch of that row with the lost cells
 // as its erasures: located from the erasure locator, and corrected at the
 // roots' locations (the plain decode's apply), so that each lost cell
@@ -898,39 +1002,37 @@ __device__ int stripe_errata(const StripeParams& p, const gf8::Tables& gf, const
     const long long col = stripe_column<VEC>(base, have ? __ffs(todo) - 1 : 0);
     todo &= todo - 1;
     uint8_t word[kFs], syn[kMaxRoots], lam[kMaxRoots + 1];
-    int32_t sl[kMaxRoots];
     bool fine = true;
     int deg = 0;
     Params q;
     if (have) {
       for (int j = 0; j < n; ++j) word[j] = p.cells[j * L + col];
       for (int t = 0; t < e; ++t) word[lost[t]] = 0;
-      // 1. S_i = sum_j r_j alpha^{va_i (n-1-j)}, in log form
+      // 1. S_i = sum_j r_j alpha^{va_i (n-1-j)}
       for (int i = 0; i < nr; ++i) syn[i] = 0;
       for (int j = 0; j < n; ++j) {
         if (!word[j]) continue;
         const int lx = gf.log[word[j]];
         for (int i = 0; i < nr; ++i) syn[i] ^= gf.antilog[gf8::mod_fs(lx + va[i] * (n - 1 - j))];
       }
-      for (int i = 0; i < nr; ++i) sl[i] = gf.log[syn[i]];
+      for (int i = 0; i < nr; ++i) fine &= syn[i] == 0;
       q.eras_pos = lost;
       q.eras_cnt = ecount;
       q.eras_width = e;
-      q.s_log = sl;
       q.size = n - nr;
       q.nr = nr;
       q.fcr = p.fcr;
       q.prim = p.prim;
       q.prim_inv = p.prim_inv;
-      deg = locate_row<true>(q, gf, s_tab + 768, 0, syn, lam, &fine);
+      if (!fine) deg = locate_row<true>(q, gf, s_tab + 768, 0, syn, lam);
     }
     uint32_t hits[kSweepSteps];
     chien_sweep(gf, lam, deg, hits);
     if (have) {
       int count = 0;
       if (deg > 0)
-        fine = finish_row<false>(q, gf, s_tab + 512, s_tab + 768, va, syn, lam, deg, hits, word,
-                                 0, &count);
+        fine = finish_row<false>(q, gf, s_tab + 512, s_tab + 768, va, syn, lam, deg, hits, 0,
+                                 [&word](int j, int c) { word[j] ^= c; }, &count);
       for (int t = 0; t < e; ++t) p.rebuilt[t * L + col] = word[lost[t]];
       p.ok_out[col] = fine;
       p.corrected_out[col] = (uint8_t)count;
@@ -1077,9 +1179,51 @@ extern "C" int pp_rs_syndrome(const void* data, const void* parity, const void* 
   return (int)cudaGetLastError();
 }
 
-// Launches the decode on `stream` (a cudaStream_t) of `device`; allocates
-// nothing.  s_log: the log-form syndromes [B, nr] (pp_rs_syndrome's, or
-// the caller's in the external-syndrome path).  erasure: 1 starts BM from
+// Sets the decode kernel (erasure: its erasure form) up on `device` for nr
+// roots: writes its dynamic shared bytes a block to *smem, gives it the
+// least shared-memory carveout (a percentage, written to *carveout) that
+// keeps as many of its blocks an SM as the largest would, so that the rest
+// of the SM's shared memory and L1 is L1, and returns how many of its
+// blocks an SM then holds; a negative cudaError_t on an error.
+extern "C" int pp_rs_decode_shape(int erasure, int nr, int device, int* smem, int* carveout) {
+  if (nr < 1 || nr > kMaxRoots) return -(int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return -(int)err;
+  const void* kern = erasure ? reinterpret_cast<const void*>(rs_decode_kernel<true>)
+                             : reinterpret_cast<const void*>(rs_decode_kernel<false>);
+  *smem = decode_smem(nr);
+  const auto per_sm = [&](int pct, int* blocks) {
+    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout, pct);
+    return e != cudaSuccess ? e
+                            : cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kern, kThreads,
+                                                                            *smem);
+  };
+  int most = 0, sm_smem = 0, reserved = 0;
+  cudaFuncAttributes attr;
+  if ((err = per_sm(cudaSharedmemCarveoutMaxShared, &most)) != cudaSuccess ||
+      (err = cudaFuncGetAttributes(&attr, kern)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sm_smem, cudaDevAttrMaxSharedMemoryPerMultiprocessor,
+                                    device)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock,
+                                    device)) != cudaSuccess)
+    return -(int)err;
+  // the blocks' shared bytes as a share of the SM's, rounded up; the
+  // carveout is rounded up again to a size the SM has
+  const long long need = (long long)most * ((long long)attr.sharedSizeBytes + *smem + reserved);
+  int pct = (int)((100 * need + sm_smem - 1) / sm_smem);
+  int blocks = 0;
+  for (;; ++pct) {
+    if ((err = per_sm(pct < 100 ? pct : 100, &blocks)) != cudaSuccess) return -(int)err;
+    if (blocks >= most || pct >= 100) break;
+  }
+  *carveout = pct < 100 ? pct : 100;
+  return blocks;
+}
+
+// Launches the decode on `stream` (a cudaStream_t) of `device`, in the
+// carveout pp_rs_decode_shape set (a launch before it runs in the card's
+// default); allocates nothing.  s_log: the log-form syndromes [B, nr]
+// (pp_rs_syndrome's, or the caller's in the external-syndrome path).  erasure: 1 starts BM from
 // the erasure locator of eras_pos, eras_cnt (eras_width wide), 0 from 1.
 // Returns the launch's cudaError_t.
 extern "C" int pp_rs_decode(int erasure, const void* data, const void* parity,
@@ -1120,9 +1264,9 @@ extern "C" int pp_rs_decode(int erasure, const void* data, const void* parity,
   const dim3 grid((unsigned)((batch + kThreads - 1) / kThreads));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (erasure)
-    rs_decode_kernel<true><<<grid, kThreads, 0, st>>>(p);
+    rs_decode_kernel<true><<<grid, kThreads, decode_smem(nr), st>>>(p);
   else
-    rs_decode_kernel<false><<<grid, kThreads, 0, st>>>(p);
+    rs_decode_kernel<false><<<grid, kThreads, decode_smem(nr), st>>>(p);
   return (int)cudaGetLastError();
 }
 

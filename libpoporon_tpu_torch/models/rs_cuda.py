@@ -260,6 +260,7 @@ class RSCudaDecoder:
         self._work = {}                       # (card, stream) -> the stripe kernel's ticket
         self._shapes = {}                     # (card, n_surv, fast, vec) -> its launch shape
         self._syndrome_shapes = {}            # card -> the syndrome kernel's launch shape
+        self._decode_shapes = {}              # (card, erasure) -> the decode kernel's launch shape
 
     def supports_erasure(self, E: int) -> bool:
         """Erasure lists 1..nr wide ride the kernel."""
@@ -394,6 +395,22 @@ class RSCudaDecoder:
                                            smem.value)
         return self._syndrome_shapes[card]
 
+    def decode_shape(self, dev, erasure: bool):
+        """The decode kernel's launch on `dev` (erasure: its erasure form):
+        (blocks an SM holds, dynamic shared bytes a block, the shared-memory
+        carveout in percent), from the library, which sets that carveout,
+        the least that keeps the blocks an SM, once a card and form."""
+        key = (dev.index or 0, erasure)
+        if key not in self._decode_shapes:
+            smem, carveout = ctypes.c_int(0), ctypes.c_int(0)
+            per_sm = build.occupancy("pp_rs_decode_shape", dev, int(erasure), self.nr, key[0],
+                                     ctypes.addressof(smem), ctypes.addressof(carveout))
+            if per_sm == 0:
+                raise RuntimeError(f"rs_decode kernel: no block fits an SM at "
+                                   f"{smem.value} B of shared memory")
+            self._decode_shapes[key] = (per_sm, smem.value, carveout.value)
+        return self._decode_shapes[key]
+
     def _syndromes(self, data, parity):
         with span("poporon.launch.rs_syndrome"):
             dev = data.device
@@ -436,6 +453,7 @@ class RSCudaDecoder:
             corrected = torch.empty(B, dtype=torch.int32, device=dev)
             if B == 0:
                 return ok, data_out, parity_out, corrected
+            self.decode_shape(dev, mode == MODE_ERASURE)
             build.launch("pp_rs_decode", dev, int(mode == MODE_ERASURE), data, parity, eras_pos,
                          eras_count, eras_width, s_log, self.tables, data_out, parity_out, ok,
                          corrected, B, size, nr, self.fcr, self.prim, self.prim_inv)

@@ -50,6 +50,9 @@ SIGNATURES = {
     # batch, size, nr, fcr, prim, prim_inv, device, stream
     "pp_rs_decode": [_I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
                      _I, _I, _I, _I, _I, _I, _I, _P],
+    # erasure, nr, device, smem out, carveout out (returns blocks per SM,
+    # or a negative cudaError_t)
+    "pp_rs_decode_shape": [_I, _I, _I, _P, _P],
     # cells, lost, surv, nibbles, tables, rebuilt, ok_out, corrected_out,
     # failed_out, work, grid, smem, L, n, e, nr, fcr, prim, prim_inv, fast,
     # tmask, vec, device, stream
