@@ -84,6 +84,16 @@ each), then one line `{"kernels": [...]}`, and as the last line
 `python3 chip_smoke.py --parallel-only` builds the kernels and runs the
 RS and LDPC main paths, then phases 13 and 14 alone over every visible
 card: the multi-card check, for a machine with several cards.
+
+Phase 16 drives RS(544,514) over GF(2^10), 400G Ethernet's KP4 code, at
+B = 131072 codewords of 16-bit symbols through the facade: both m = 10
+kernels (their launches counted) against the plain version on the card,
+on the benchmark cell `rs544.ber2p4e-4.dev`'s mix (bits flipped at
+2.4e-4) and on rows of exactly t = 15 and t + 1 errors, then timed; and
+the gate's other m = 10 shapes (nr = 14, 16, 33 and 64, prim 2 and 7,
+fcr 1 and 5) on a thousand rows each against the plain version.
+`python3 chip_smoke.py --wide-only` builds the kernels and runs phase 16
+alone.
 """
 
 from __future__ import annotations
@@ -168,20 +178,27 @@ def max_abs_err(got, want) -> int:
                if a.numel() else 0 for a, b in zip(got, want))
 
 
-PTXAS_KERNELS = ("rs_decode_kernel", "rs_stripe_kernel")
+PTXAS_KERNELS = ("rs_decode_kernel", "rs_stripe_kernel", "rs_syndrome_wide_kernel")
 
 
 def ptxas_report(lines) -> dict:
     """Each form of the kernels PTXAS_KERNELS (`rs_decode_kernel<false>`
-    and so on) -> its registers, stack frame, spill stores and loads and
-    static shared bytes, from the build's `-Xptxas=-v` lines."""
+    and `<true>` for bytes, `rs_decode_kernel<10,false>` for ten-bit
+    symbols, `rs_syndrome_wide_kernel<2>` for two factors, and so on) -> its
+    registers, stack frame, spill stores and loads and static shared bytes,
+    from the build's `-Xptxas=-v` lines."""
     out, cur = {}, None
     for ln in lines:
-        m = re.search(r"Compiling entry function '\w*?\d(rs_[a-z]+_kernel)ILb([01])E", ln)
+        m = re.search(r"Compiling entry function '\w*?\d(rs_[a-z_]+_kernel)I(?:Li(\d+)E)?"
+                      r"(?:Lb([01])E)?", ln)
         if "Compiling entry function" in ln:
             cur = None
             if m and m[1] in PTXAS_KERNELS:
-                cur = f"{m[1]}<{'true' if m[2] == '1' else 'false'}>"
+                if m[3] is None:                    # rs_syndrome_wide_kernel<F>
+                    cur = f"{m[1]}<{m[2]}>"
+                else:                               # a field's form, m = 8 unnamed
+                    field = "" if m[2] in (None, "8") else f"{m[2]},"
+                    cur = f"{m[1]}<{field}{'true' if m[3] == '1' else 'false'}>"
                 out[cur] = {}
             continue
         if cur is None:
@@ -1162,6 +1179,201 @@ def stripe_phase(pt, dev, rng, common) -> dict:
     return entry
 
 
+# ---------------------------------------------- ten-bit symbols (phase 16)
+
+WIDE_CONFIG = (10, 0x409, 0, 1, 30)     # RS(544,514) "KP4", IEEE 802.3 Clause 91
+WIDE_SIZE = 514
+WIDE_PER_BIT = 2.4e-4                   # fecbench/traffic/ber2p4e-4.dev.json's bit error rate
+WIDE_PLAIN_ROWS = 16384                 # rows a block of the plain version ([rows, 10230] evaluations)
+
+
+def wide_bit_flips(g, word, m: int, per_bit: float):
+    """word with each of its symbols' m bits flipped independently at
+    per_bit (fecbench/channels/bit_flips.py's channel)."""
+    import torch
+    err = torch.zeros(word.shape, dtype=torch.int32, device=word.device)
+    for b in range(m):
+        err |= (torch.rand(word.shape, generator=g, device=word.device) < per_bit).to(torch.int32) << b
+    return word ^ err.to(word.dtype)
+
+
+def wide_exact_errors(g, word, fs: int, count):
+    """word with `count` symbol errors a row (an int, or a tensor [B] of
+    each row's count) at distinct positions, each a random nonzero XOR."""
+    import torch
+    B, n = word.shape
+    rank = torch.rand((B, n), generator=g, device=word.device).argsort(dim=1).argsort(dim=1)
+    val = torch.randint(1, fs + 1, (B, n), generator=g, device=word.device, dtype=torch.int32)
+    count = torch.as_tensor(count, device=word.device).reshape(-1, 1)
+    return word ^ torch.where(rank < count, val, 0).to(word.dtype)
+
+
+# the gate's other m = 10 shapes: (config, data symbols), one of each
+# syndrome form F = ceil(nr / 16) = 1, 3 and 4 and a prim and fcr other than KP4's
+WIDE_SHAPES = (((10, 0x409, 0, 1, 14), 514),     # RS(528,514) "KR4", Clause 91's other code
+               ((10, 0x409, 5, 1, 16), 300),     # fcr 5, one whole factor
+               ((10, 0x409, 0, 2, 33), 900),     # prim 2, a factor of one root
+               ((10, 0x409, 1, 7, 64), 959))     # prim 7, fcr 1, the whole 1023 symbols
+WIDE_SHAPE_ROWS = 1001                           # ragged against every block of rows
+
+
+def wide_shapes(pt, dev) -> list[dict]:
+    """The m = 10 kernels at the gate's other shapes (WIDE_SHAPES), each
+    on B = WIDE_SHAPE_ROWS rows with 0 to t + 2 errors, in full and from
+    row 1: each decode launches both kernels (the counts move by 2 and
+    1) and equals the plain version, the syndrome kernel equals its plain
+    version, and every row of at most t errors is recovered."""
+    import torch
+    out = []
+    for cfg, size in WIDE_SHAPES:
+        codec = pt.create(pt.RSConfig(*cfg), device="cuda")
+        rs, kern = codec._rs, codec._rs.kernel
+        check(kern is not None and kern.m == 10, f"{cfg} has no m = 10 kernel")
+        nr, fs = rs.num_roots, rs.fs
+        g = torch.Generator(device=dev).manual_seed(cfg[2] * 1000 + nr)
+        info = torch.randint(0, fs + 1, (WIDE_SHAPE_ROWS, size), generator=g, device=dev,
+                             dtype=torch.int32).to(torch.int16)
+        word = torch.cat([info, codec.encode(info).parity], dim=1)
+        count = torch.arange(WIDE_SHAPE_ROWS, device=dev) % (nr // 2 + 3)
+        w = wide_exact_errors(g, word, fs, count)
+        d, p = w[:, :size].contiguous(), w[:, size:].contiguous()
+        for tag, (dd, pp) in (("all", (d, p)), ("from_row_1", (d[1:], p[1:]))):
+            kern.launches = kern.syndrome_launches = 0
+            got = codec.decode(dd, pp)
+            check(kern.launches == 2 and kern.syndrome_launches == 1,
+                  f"wide {cfg} {tag}: {kern.launches} launches, "
+                  f"{kern.syndrome_launches} of syndromes")
+            want = rs._decode_plain(dd, pp)
+            check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                  f"wide {cfg} {tag}: kernels != plain version")
+            check(torch.equal(kern.syndromes(dd, pp), rs.exp2log[rs._syndrome(dd, pp).long()]),
+                  f"wide {cfg} {tag}: syndrome kernel != plain version")
+        within = count <= nr // 2
+        check(bool(got.ok[within[1:]].all()) and torch.equal(got.data[within[1:]], info[1:][within[1:]]),
+              f"wide {cfg}: rows of at most t errors not recovered")
+        out.append({"config": cfg, "size": size, "rows": WIDE_SHAPE_ROWS,
+                    "ok_share": float(got.ok.float().mean())})
+    return out
+
+
+def wide_phase(pt, dev, forms, common) -> list[dict]:
+    """Phase 16: RS(544,514) over GF(2^10) through the facade on the card,
+    B = BATCH codewords of 16-bit symbols.  The codec holds the m = 10
+    kernels; encode equals the NumPy LFSR; each decode (both kernels, the
+    launcher's counts moving by 2 and 1) equals the plain version on the
+    card, and the syndrome kernel alone equals its plain version, on the
+    cell `rs544.ber2p4e-4.dev`'s mix (bits flipped at 2.4e-4), on rows with
+    exactly t = 15 errors (all recovered) and t + 1 (rows fail), at B - 1
+    and from row 1 (rows 4-byte aligned); the gate's other shapes on a
+    thousand rows each (`wide_shapes`); then the kernels, the facade and
+    the plain version timed.  Returns the two kernels' entries of the
+    kernels line."""
+    import torch
+    from libpoporon_tpu_torch.benchmarks.rs_kernel import time_in_turns
+    from libpoporon_tpu_torch.models.rs import _encode_np
+    from libpoporon_tpu_torch.utils.profiling import time_ms
+
+    t0 = time.perf_counter()
+    codec = pt.create(pt.RSConfig(*WIDE_CONFIG), device="cuda")
+    rs, kern = codec._rs, codec._rs.kernel
+    build_s = time.perf_counter() - t0
+    check(kern is not None and kern.m == 10, "RS(544,514) over GF(2^10) has no m = 10 kernel")
+    check(codec.symbol_dtype == torch.int16, f"symbol dtype {codec.symbol_dtype}")
+    nr, size, fs = rs.num_roots, WIDE_SIZE, rs.fs
+    n = size + nr
+    g = torch.Generator(device=dev).manual_seed(16)
+    info = torch.randint(0, fs + 1, (BATCH, size), generator=g, device=dev,
+                         dtype=torch.int32).to(torch.int16)
+    enc = codec.encode(info)
+    check(enc.parity.dtype == torch.int16 and tuple(enc.parity.shape) == (BATCH, nr),
+          f"encode gave {enc.parity.dtype} {tuple(enc.parity.shape)}")
+    lfsr = _encode_np(rs.gf, rs.genlog, nr, info[:256].cpu().numpy().astype(np.int64))
+    check(np.array_equal(enc.parity[:256].cpu().numpy().astype(np.int64), lfsr),
+          "m = 10 encode != NumPy LFSR")
+    word = torch.cat([info, enc.parity], dim=1)
+    cases = {"ber2p4e-4": wide_bit_flips(g, word, 10, WIDE_PER_BIT),
+             "t15": wide_exact_errors(g, word, fs, 15),
+             "t16": wide_exact_errors(g, word, fs, 16)}
+
+    def plain(d, p):
+        parts = [rs._decode_plain(d[i:i + WIDE_PLAIN_ROWS], p[i:i + WIDE_PLAIN_ROWS])
+                 for i in range(0, d.shape[0], WIDE_PLAIN_ROWS)]
+        return tuple(torch.cat(x) for x in zip(*parts))
+
+    def plain_syndromes(d, p):
+        return torch.cat([rs.exp2log[rs._syndrome(d[i:i + WIDE_PLAIN_ROWS],
+                                                  p[i:i + WIDE_PLAIN_ROWS]).long()]
+                          for i in range(0, d.shape[0], WIDE_PLAIN_ROWS)])
+
+    def same(got, want):
+        return all(torch.equal(a, b) for a, b in zip(got, want))
+
+    out = {}
+    for name, w in cases.items():
+        d, p = w[:, :size].contiguous(), w[:, size:].contiguous()
+        kern.launches = kern.syndrome_launches = 0
+        got = codec.decode(d, p)
+        check(kern.launches == 2 and kern.syndrome_launches == 1,
+              f"wide {name}: {kern.launches} launches, {kern.syndrome_launches} of syndromes")
+        check(same(got, plain(d, p)), f"wide {name}: kernels != plain version")
+        check(torch.equal(kern.syndromes(d, p), plain_syndromes(d, p)),
+              f"wide {name}: syndrome kernel != plain version")
+        for tag, (dd, pp) in (("ragged", (d[:BATCH - 1], p[:BATCH - 1])),
+                              ("from_row_1", (d[1:], p[1:])),
+                              ("one_row", (d[:1], p[:1])), ("33_rows", (d[:33], p[:33]))):
+            check(same(codec.decode(dd, pp), plain(dd, pp)), f"wide {name} {tag}: kernels != plain")
+        ok = got.ok
+        if name == "t15":
+            check(bool(ok.all()) and torch.equal(got.data, info) and bool((got.corrected == 15).all()),
+                  "wide t15: rows not recovered")
+        if name == "t16":
+            check(not bool(ok.all()), "wide t16: every row passed")
+        out[name] = {"ok_share": float(ok.float().mean()),
+                     "rows_with_errors": int((w != word).any(dim=1).sum()),
+                     "mean_corrected": float(got.corrected.float().mean())}
+    log({"phase": "wide", "config": repr(codec.config), "codec_build_s": build_s,
+         "cases": out, "kernel_vs_plain": "equal", "launches_per_decode": 2, **common})
+    log({"phase": "wide_shapes", "cases": wide_shapes(pt, dev), "kernel_vs_plain": "equal",
+         "launches_per_decode": 2})
+
+    # timing on the cell's mix
+    w = cases["ber2p4e-4"]
+    d, p = w[:, :size].contiguous(), w[:, size:].contiguous()
+    s_log = kern.syndromes(d, p)
+    t_syn, _ = time_in_turns(kern.syndromes, None, (d, p))
+    t_dec, _ = time_in_turns(kern.decode_ext, None, (d, p, s_log))
+    t_fac = time_ms(codec.decode, d, p)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    want = plain(d, p)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t1) * 1e3
+    corrected = want[3].cpu()
+    syn_ms, dec_ms = sum(t_syn) / 2, sum(t_dec) / 2
+    syn_b = bound(BATCH * (2 * n + 4 * nr), BATCH * nr * n / 2)
+    dec_b = bound(BATCH * (2 * n + 4 * nr + 2 * n + 1 + 4),
+                  rs_ops(nr, n, n, corrected, syndromes=False))
+    log({"bench": "rs544_syndrome", "kernel_ms": syn_ms, "kernel_runs_ms": t_syn, **syn_b,
+         "share_of_bound": syn_b["bound_ms"] / syn_ms, **common})
+    log({"bench": "rs544_decode", "kernel_ms": dec_ms, "kernel_runs_ms": t_dec, **dec_b,
+         "share_of_bound": dec_b["bound_ms"] / dec_ms, **common})
+    log({"bench": "rs544_facade", "ms": t_fac, "codewords_per_s": BATCH / t_fac * 1e3,
+         "payload_MB_per_s": BATCH * size * 10 / 8 / t_fac / 1e3,
+         "plain_ms": plain_ms, **common})
+    log({"phase": "wide_shape", "decode": {"shape": kern.decode_shape(dev, False),
+                                           **forms.get("rs_decode_kernel<10,false>", {})},
+         "syndrome": {"shape": kern._syndrome_shape(dev),
+                      **forms.get("rs_syndrome_wide_kernel<2>", {})}})
+    del cases, w, d, p, want
+    return [{"name": "rs544_syndrome", "route": "cuda",
+             "source": "libpoporon_tpu_torch/csrc/rs_decode.cu", "replaces": None,
+             "ms": syn_ms, "plain_ms": None, **syn_b, "library_ms": None},
+            {"name": "rs544_decode", "route": "cuda",
+             "source": "libpoporon_tpu_torch/csrc/rs_decode.cu", "replaces": None,
+             "ms": dec_ms, "plain_ms": plain_ms, "plain_ms_is": "the whole plain decode",
+             **dec_b, "library_ms": None}]
+
+
 # ------------------------------------------------------- parallel/ (phase 13)
 
 PAR_ODD = BATCH - 1     # the two-entry mesh's batch: one pad row, then split
@@ -1569,11 +1781,19 @@ def main(argv=None) -> int:
              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     log({"phase": "build", "seconds": build_s, "library": so.name, "ptxas": ptxas})
     forms = ptxas_report(ptxas)
-    check(len(forms) == 4, f"ptxas lines for {sorted(forms)}, not the decode and stripe "
-                           "kernels' two forms each")
+    check(len(forms) == 9, f"ptxas lines for {sorted(forms)}, not the decode and stripe "
+                           "kernels' two byte forms each, the decode kernel's ten-bit form "
+                           "and the wide syndrome kernel's four")
     for name, f in forms.items():
         check(f.get("spill_stores") == 0 and f.get("spill_loads") == 0,
               f"ptxas: {name} spills ({f})")
+    if "--wide-only" in argv:
+        # phase 16 alone
+        entries = wide_phase(pt, torch.device("cuda"), forms,
+                             {"batch": BATCH, "card": card, "warmup": WARMUP, "iters": ITERS})
+        print(json.dumps({"kernels": entries}), flush=True)
+        print(json.dumps({"ok": True}), flush=True)
+        return 0
     if "--stripe-only" in argv:
         # phase 15 alone
         entry = stripe_phase(pt, torch.device("cuda"), np.random.default_rng(15),
@@ -1885,10 +2105,13 @@ def main(argv=None) -> int:
     # ---- phase 15: stripes (Codec.reconstruct, the stripe kernel)
     stripe_entry = stripe_phase(pt, dev, np.random.default_rng(15), common)
 
+    # ---- phase 16: ten-bit symbols (RS(544,514) over GF(2^10))
+    wide_entries = wide_phase(pt, dev, forms, common)
+
     syn_entry.update(launches=syn_launches, max_abs_err=syn_err)
     log({"phase": "total", "seconds": time.perf_counter() - t_start, "card": card})
     print(json.dumps({"kernels": [rs_entry, syn_entry, ldpc_entry, stripe_entry,
-                                  *probe_entries]}), flush=True)
+                                  *wide_entries, *probe_entries]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

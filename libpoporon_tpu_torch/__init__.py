@@ -7,7 +7,10 @@ names.  It imports torch and never jax.  So far it carries:
   decode paths (plain, erasure, external syndrome), whose decode runs
   through hand-written CUDA kernels (csrc/rs_decode.cu) on the card,
   and the stripe decode (`Codec.reconstruct`: lost cells of shard-major
-  stripes rebuilt, one kernel launch on the card);
+  stripes rebuilt, one kernel launch on the card); symbols wider than a
+  byte (m > 8, such as the KP4 code RS(544,514) over GF(2^10)) as 16-bit
+  words (`Codec.symbol_dtype`), encode and plain decode, the kernels at
+  m = 10;
 - LDPC: the seeded parity-check structure and interleavers, encode, and
   min-sum BP decode, hard and soft, whose BP runs through a hand-written
   CUDA kernel (csrc/ldpc_bp.cu) on the card;

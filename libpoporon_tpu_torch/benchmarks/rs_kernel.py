@@ -200,7 +200,7 @@ LABELS = ("copy_through", "syndromes", "erasure_locator", "bm", "degree_chien",
 # to "wait".
 ANCHORS = [
     (r"(#include <cuda_runtime.h>\n)", r"\1" + _PRELUDE.replace("\\", "\\\\")),
-    (r"(const uint8_t\* S,\n\s+uint8_t\* el)\) \{\n", r"\1, PPStamps& pp) {\n"),
+    (r"(const Sym<M>\* S,\n\s+Sym<M>\* el)\) \{\n", r"\1, PPStamps& pp) {\n"),
     (r"(\n  // 2\. Start locator)", r"\n  pp.stage(2);\1"),
     (r"(\n  // 3\. Berlekamp-Massey)", r"\n  pp.stage(3);\1"),
     (r"(\n  // 4\. Degree)", r"\n  pp.stage(4);\1"),
@@ -212,7 +212,7 @@ ANCHORS = [
      r"  pp.stage(7);\n\1  pp.stage(1);\n"),
     (r"(  __syncthreads\(\);  // syndromes in\n)", r"  pp.stage(7);\n\1  pp.stage(2);\n"),
     (r"(row, S, el)\);\n", r"\1, pp);\n"),
-    (r"(  chien_sweep\(gf, el, deg, hits\);\n)", r"  pp.stage(4);\n\1  pp.stage(0);\n"),
+    (r"(  chien_sweep\(p, gf, el, deg, hits\);\n)", r"  pp.stage(4);\n\1  pp.stage(0);\n"),
     (r"(  __syncwarp\(\);\n)", r"\1  pp.stage(4);\n"),
     (r"(&corrected)\);\n", r"\1, pp);\n"),
     (r"(    p\.corrected_out\[row\] = corrected;\n  \}\n)(\}\n)", r"\1  pp.flush();\n\2"),

@@ -151,6 +151,10 @@ class _Handle:
     def __init__(self, cfg: _CompatConfig, device):
         if not isinstance(cfg, _CompatConfig):
             raise TypeError(f"not a poporon config: {type(cfg)}")
+        if isinstance(cfg.inner, RSConfig) and cfg.inner.symbol_size > 8:
+            # the C API's buffers are bytes; a wider symbol would be cut
+            raise ValueError(f"the shim takes RS symbols of at most 8 bits, not "
+                             f"symbol_size {cfg.inner.symbol_size}")
         self.codec = Codec(cfg.inner, device)
         self.erasure = cfg.erasure
         self.syndrome = cfg.syndrome

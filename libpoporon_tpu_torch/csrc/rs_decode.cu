@@ -1,6 +1,9 @@
 // Reed-Solomon decode over GF(2^8) for Hopper: a syndrome kernel and a
 // decode kernel, one codeword per thread in each, and a stripe kernel
 // that rebuilds lost cells of shard-major stripes (last in this file).
+// The decode kernel is a template over the field, instantiated for bytes
+// (m = 8) and for ten-bit symbols held in 16-bit words (m = 10, plain form
+// only); m = 10 has a syndrome kernel of its own (`rs_syndrome_wide_kernel`).
 //
 // Replaces libpoporon_tpu/models/rs_pallas.py `RSPallasDecoder._kernel`
 // in its three modes: plain, erasure and external syndrome (rs_pallas.py
@@ -135,43 +138,54 @@
 
 #include <cuda_runtime.h>
 
-#include "gf8.cuh"
+#include "gf.cuh"
 
 namespace {
 
-using gf8::kFs;
+using galois::Field;
 
+template <int M>
+using Sym = typename Field<M>::Sym;
+
+constexpr int kFs = Field<8>::kFs;   // the byte field's size, of the stripe and byte syndrome kernels
 constexpr int kThreads = 128;    // codewords per block of the decode kernel
 constexpr int kMaxRoots = 64;    // nr limit of the per-thread arrays
-constexpr int kSweepSteps = 8;   // Chien points a lane: 32 lanes x 8 >= fs
+constexpr int kSweepSteps = 8;   // Chien points a lane: 32 lanes x 8 >= fs (m = 8), a chunk's past it
 constexpr unsigned kFullWarp = 0xffffffffu;
 
 // Bytes between two rows' syndromes in the decode kernel's shared memory:
-// the least odd count of words that holds nr bytes.
+// the least odd count of words that holds nr bytes (nr symbols of a byte,
+// or nr / 2 of two bytes).
 __host__ __device__ constexpr int syndrome_stride(int nr) { return 4 * (((nr + 3) / 4) | 1); }
 
-// The decode kernel's dynamic shared bytes a block: its rows' syndromes.
+// The decode kernel's dynamic shared bytes a block: its rows' syndromes,
+// nr bytes a row.
 __host__ __device__ constexpr int decode_smem(int nr) { return kThreads * syndrome_stride(nr); }
 
-struct Params {
-  const uint8_t* data;      // [B, size]
-  const uint8_t* parity;    // [B, nr]
+template <int M>
+struct ParamsT {
+  const Sym<M>* data;       // [B, size]
+  const Sym<M>* parity;     // [B, nr]
   const int32_t* eras_pos;  // [B, eras_width] (erasure mode)
   const int32_t* eras_cnt;  // [B] (erasure mode)
   int eras_width;
   const int32_t* s_log;     // [B, nr] log-form syndromes, fs = zero
-  const int32_t* tables;    // [4, 256]: log, antilog, sec, inv
-  uint8_t* data_out;        // [B, size]
-  uint8_t* parity_out;      // [B, nr]
+  const int32_t* tables;    // [4, 2^M]: log, antilog, sec, inv
+  Sym<M>* data_out;         // [B, size]
+  Sym<M>* parity_out;       // [B, nr]
   uint8_t* ok_out;          // [B] bool
   int32_t* corrected_out;   // [B]
   int batch, size, nr, fcr, prim, prim_inv;
 };
 
+using Params = ParamsT<8>;
+
 // alpha^{(prim * (fs - 1 - (pos + pad)) mod 2^16) mod fs}, in wrapping
 // 32-bit arithmetic (decode.c:34-47, rs.py:294-296).
-__device__ __forceinline__ int erasure_term(const gf8::Tables& gf, int pos,
+template <int M>
+__device__ __forceinline__ int erasure_term(const galois::Tables<M>& gf, int pos,
                                             int pad, int prim) {
+  constexpr int kFs = Field<M>::kFs;
   const unsigned raw =
       (unsigned)prim * ((unsigned)(kFs - 1 - pad) - (unsigned)pos);
   return gf.antilog[(raw & 0xFFFFu) % kFs];
@@ -186,17 +200,18 @@ __device__ __forceinline__ int erasure_slot(const int32_t* pos, int width,
 
 // Steps 2 to 4 of error_correction_u8 (decode.c:17-230) for a row with
 // syndrome errors: the locator el (nr + 1 slots) from its syndromes S
-// (step 1, the caller's, as bytes).  Returns the locator's degree; a row
+// (step 1, the caller's, as symbols).  Returns the locator's degree; a row
 // of degree 0 ends here, not ok (fail_deg).
-template <bool ERASURE>
-__device__ __forceinline__ int locate_row(const Params& p, const gf8::Tables& gf,
-                                          const int* inv, long long row, const uint8_t* S,
-                                          uint8_t* el) {
+template <int M, bool ERASURE>
+__device__ __forceinline__ int locate_row(const ParamsT<M>& p, const galois::Tables<M>& gf,
+                                          const int* inv, long long row, const Sym<M>* S,
+                                          Sym<M>* el) {
+  constexpr int kFs = Field<M>::kFs;
   const int nr = p.nr;
   const int pad = kFs - p.size - nr;
 
   // 2. Start locator: 1, or the erasure-locator product.
-  uint8_t bp[kMaxRoots + 1];
+  Sym<M> bp[kMaxRoots + 1];
   el[0] = 1;
   for (int j = 1; j <= nr; ++j) el[j] = 0;
   int ec = 0;  // erasure count, 8 bits wide as in the XLA path's BM
@@ -270,8 +285,8 @@ __device__ __forceinline__ int locate_row(const Params& p, const gf8::Tables& gf
   return 0;  // fail_deg: word untouched
 }
 
-// 5. Chien at alpha^i, i = 1..fs, a warp a row.  Every lane of the warp
-//    calls it, those without a locator to sweep (deg 0) too.  The warp
+// 5. Chien at alpha^i, i = 1..fs, a warp a row (m = 8).  Every lane of the
+//    warp calls it, those without a locator to sweep (deg 0) too.  The warp
 //    takes its rows of degree >= 1 in turn, by the bits of one ballot; the
 //    row's owner lane broadcasts its coefficients, and lane l evaluates the
 //    points i = l + 1 + 32 s, s < kSweepSteps, each term's log stepped in
@@ -281,8 +296,9 @@ __device__ __forceinline__ int locate_row(const Params& p, const gf8::Tables& gf
 //    scan order, and the owner keeps its row's hits.  All the roots are
 //    the scan's first deg: el_0 = 1, so el (degree deg) has at most deg
 //    roots among the fs distinct points.
-__device__ __forceinline__ void chien_sweep(const gf8::Tables& gf, const uint8_t* el,
-                                            int deg, uint32_t (&hits)[kSweepSteps]) {
+__device__ __forceinline__ void chien_sweep(const Params&, const galois::Tables<8>& gf,
+                                            const uint8_t* el, int deg,
+                                            uint32_t (&hits)[kSweepSteps]) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int s = 0; s < kSweepSteps; ++s) hits[s] = 0;
@@ -295,8 +311,8 @@ __device__ __forceinline__ void chien_sweep(const gf8::Tables& gf, const uint8_t
     for (int j = 1; j <= d; ++j) {
       const int c = __shfl_sync(kFullWarp, lane == owner ? el[j] : 0, owner);
       if (c == 0) continue;  // a zero coefficient, skipped by every lane
-      const int step = gf8::mod_fs(32 * j);
-      int e = gf8::mod_fs(gf.log[c] + j * (lane + 1));
+      const int step = galois::mod_fs<8>(32 * j);
+      int e = galois::mod_fs<8>(gf.log[c] + j * (lane + 1));
 #pragma unroll
       for (int s = 0; s < kSweepSteps; ++s) {
         ev[s] ^= gf.antilog[e];
@@ -313,40 +329,146 @@ __device__ __forceinline__ void chien_sweep(const gf8::Tables& gf, const uint8_t
   }
 }
 
+// The roots the wide sweep gives a row's owner: found of them, each with
+// its point's index i in 1..fs and its location in the unshortened word.
+template <int M>
+struct WideRoots {
+  int found;
+  Sym<M> root[kMaxRoots], loc[kMaxRoots];
+};
+
+// The wide sweep's C steps from location k0 + lane (of lane 0 + 32 s for
+// step s) for the row of lane `owner`, of degree d: its roots there added
+// to the owner's `out` in the order of s, then lane.
+template <int C, int M>
+__device__ __forceinline__ void sweep_chunk(const galois::Tables<M>& gf, const Sym<M>* el,
+                                            int d, int owner, int k0, int prim,
+                                            WideRoots<M>& out) {
+  constexpr int kFs = Field<M>::kFs;
+  const int lane = threadIdx.x & 31;
+  int ev[C];
+#pragma unroll
+  for (int s = 0; s < C; ++s) ev[s] = 0;
+  const int i0 = galois::mod_fs<M>((k0 + lane + 1) * prim);   // the lane's first point
+  for (int j = 1; j <= d; ++j) {
+    const int c = __shfl_sync(kFullWarp, lane == owner ? el[j] : 0, owner);
+    if (c == 0) continue;
+    const int step = galois::mod_fs<M>(32 * prim * j);
+    int e = galois::mod_fs<M>(gf.log[c] + j * i0);
+#pragma unroll
+    for (int s = 0; s < C; ++s) {
+      ev[s] ^= gf.antilog[e];
+      e += step;
+      if (e >= kFs) e -= kFs;
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < C; ++s) {
+    const uint32_t b = __ballot_sync(kFullWarp, ev[s] == 1 && k0 + lane + 32 * s < kFs);
+    if (lane == owner) {
+      for (uint32_t bits = b; bits; bits &= bits - 1) {
+        const int k = k0 + __ffs(bits) - 1 + 32 * s;
+        const int i = galois::mod_fs<M>((k + 1) * prim);
+        out.root[out.found] = i == 0 ? kFs : i;
+        out.loc[out.found] = k;
+        ++out.found;
+      }
+    }
+  }
+}
+
+// 5. (m > 8) Chien a warp a row over the n locations of the shortened
+//    word only, k = pad .. fs - 1, each at its point i = (k + 1) prim mod
+//    fs (k = (i prim_inv - 1) mod fs, so each point once): lane l takes
+//    the locations pad + l + 32 s, in chunks of 8 steps, then 4, 2 and 1
+//    (so that no step is past the word's last 32), each chunk's terms
+//    stepped in registers as in the sweep above, and the owner records its
+//    roots as the ballots give them.  A row whose found roots fall short
+//    of its degree fails, as one with a root in the pad or too few roots
+//    does in the full scan, with the same output; where all deg are
+//    found they are the scan's roots, in an order that changes nothing
+//    (distinct locations, all inside the word).  At n = 544 and fs = 1023
+//    that is 17 steps a lane in place of 32.
+template <int M>
+__device__ __forceinline__ void chien_sweep(const ParamsT<M>& p, const galois::Tables<M>& gf,
+                                            const Sym<M>* el, int deg, WideRoots<M>& out) {
+  constexpr int kFs = Field<M>::kFs;
+  const int pad = kFs - p.size - p.nr;
+  const int steps = (p.size + p.nr + 31) >> 5;
+  out.found = 0;
+  for (uint32_t todo = __ballot_sync(kFullWarp, deg > 0); todo; todo &= todo - 1) {
+    const int owner = __ffs(todo) - 1;
+    const int d = __shfl_sync(kFullWarp, deg, owner);
+    int s0 = 0;
+    for (; s0 + kSweepSteps <= steps; s0 += kSweepSteps)
+      sweep_chunk<kSweepSteps, M>(gf, el, d, owner, pad + 32 * s0, p.prim, out);
+    if ((steps - s0) & 4) {
+      sweep_chunk<4, M>(gf, el, d, owner, pad + 32 * s0, p.prim, out);
+      s0 += 4;
+    }
+    if ((steps - s0) & 2) {
+      sweep_chunk<2, M>(gf, el, d, owner, pad + 32 * s0, p.prim, out);
+      s0 += 2;
+    }
+    if ((steps - s0) & 1) sweep_chunk<1, M>(gf, el, d, owner, pad + 32 * s0, p.prim, out);
+  }
+}
+
+// What the sweep leaves a row's owner: the ballot words (m = 8) or the
+// roots themselves.
+template <int M>
+struct SweepOut {
+  using type = WideRoots<M>;
+};
+template <>
+struct SweepOut<8> {
+  using type = uint32_t[kSweepSteps];
+};
+
 // Steps 5 to 9 for a row whose locator el of degree deg >= 1 the warp
 // swept into hits: returns ok, gives *corrected the count, and hands each
 // correction the XLA path would make to apply(j, c), symbol j of the word
-// (size data symbols, then nr parity symbols) XORed with the byte c.
-template <bool ERASURE, class Apply>
-__device__ __forceinline__ bool finish_row(const Params& p, const gf8::Tables& gf,
+// (size data symbols, then nr parity symbols) XORed with the symbol c.
+template <int M, bool ERASURE, class Apply>
+__device__ __forceinline__ bool finish_row(const ParamsT<M>& p, const galois::Tables<M>& gf,
                                            const int* sec, const int* inv, const int* va,
-                                           const uint8_t* S, const uint8_t* el, int deg,
-                                           const uint32_t (&hits)[kSweepSteps], long long row,
+                                           const Sym<M>* S, const Sym<M>* el, int deg,
+                                           const typename SweepOut<M>::type& hits, long long row,
                                            Apply apply, int* corrected) {
+  constexpr int kFs = Field<M>::kFs;
   const int nr = p.nr, size = p.size, n = size + nr;
   const int pad = kFs - n;
   *corrected = 0;
 
   // 5. (the owner's part) The roots in scan order, their locations, and
   //    fail_pad: a location in the pad region.
-  uint8_t root[kMaxRoots], loc[kMaxRoots];
+  Sym<M> root[kMaxRoots], loc[kMaxRoots];
   int found = 0;
   bool fail_pad = false;
+  if constexpr (M == 8) {
 #pragma unroll
-  for (int s = 0; s < kSweepSteps; ++s) {
-    for (uint32_t b = hits[s]; b; b &= b - 1) {
-      const int i = __ffs(b) + 32 * s;  // lane + 1 + 32 s
-      const int k = gf8::mod_fs(i * p.prim_inv + kFs - 1);
-      root[found] = i;
-      loc[found] = k;
-      fail_pad |= k < pad;
-      ++found;
+    for (int s = 0; s < kSweepSteps; ++s) {
+      for (uint32_t b = hits[s]; b; b &= b - 1) {
+        const int i = __ffs(b) + 32 * s;  // lane + 1 + 32 s
+        const int k = galois::mod_fs<M>(i * p.prim_inv + kFs - 1);
+        root[found] = i;
+        loc[found] = k;
+        fail_pad |= k < pad;
+        ++found;
+      }
+    }
+  } else {
+    // the sweep saw the word's locations alone
+    found = hits.found;
+    for (int t = 0; t < found && t < deg; ++t) {
+      root[t] = hits.root[t];
+      loc[t] = hits.loc[t];
     }
   }
   if (found != deg || fail_pad) return false;  // word untouched
 
   // 6. Omega = S * el mod x^nr, degree < deg.
-  uint8_t om[kMaxRoots];
+  Sym<M> om[kMaxRoots];
   for (int i = 0; i < deg; ++i) {
     int o = 0;
     for (int j = 0; j <= i; ++j) o ^= gf.mul(el[j], S[i - j]);
@@ -354,7 +476,7 @@ __device__ __forceinline__ bool finish_row(const Params& p, const gf8::Tables& g
   }
 
   // 7. Forney: num * sec[root] * inv[den], inv[0] = 1.
-  uint8_t coef[kMaxRoots];
+  Sym<M> coef[kMaxRoots];
   int live = 0;
   for (int t = 0; t < deg; ++t) {
     const int r = root[t];
@@ -476,25 +598,28 @@ __device__ __forceinline__ void copy_through(const uint8_t* src, uint8_t* dst, i
   }
 }
 
-// Turns the block's log-form syndromes, rows x nr int32 at src, into byte
-// syndromes, row r at syn + r * syndrome_stride(nr), with 16-byte loads
-// from src's first 16-byte boundary (the ints before it and after the last
-// whole 16 bytes one at a time).  Step 1's rules: S_i = antilog[v] for a
-// log v in [0, fs] and 0 outside it; err[r] is set for a row with any
-// v != fs (the sentinel fs = no error), so that a log outside the range
-// still counts as an error.
+// Turns the block's log-form syndromes, rows x nr int32 at src, into
+// symbols, row r at syn + r * syndrome_stride(nr * sizeof(Sym)) bytes, with
+// 16-byte loads from src's first 16-byte boundary (the ints before it and
+// after the last whole 16 bytes one at a time).  Step 1's rules: S_i =
+// antilog[v] for a log v in [0, fs] and 0 outside it; err[r] is set for a
+// row with any v != fs (the sentinel fs = no error), so that a log outside
+// the range still counts as an error.
+template <int M>
 __device__ __forceinline__ void stage_syndromes(const int32_t* src, int nr, int rows,
                                                 const int* antilog, uint8_t* syn,
                                                 uint8_t* err) {
+  constexpr int kFs = Field<M>::kFs;
   const int tid = threadIdx.x;
   const int total = rows * nr;
-  const int stride = syndrome_stride(nr);
+  const int stride = syndrome_stride(nr * (int)sizeof(Sym<M>));
   // row of element e < 2^16: (e m) >> 32, m = 2^32 / nr + 1 (exact: e (m nr
   // - 2^32) <= e nr < 2^32)
   const unsigned long long m = (1ull << 32) / (unsigned)nr + 1;
   const auto put = [&](int e, int v) {
     const int r = (int)(((unsigned long long)e * m) >> 32);
-    syn[r * stride + e - r * nr] = (uint8_t)((v >= 0 && v <= kFs) ? antilog[v] : 0);
+    reinterpret_cast<Sym<M>*>(syn + r * stride)[e - r * nr] =
+        (Sym<M>)((v >= 0 && v <= kFs) ? antilog[v] : 0);
     if (v != kFs) err[r] = 1;
   };
   int head = (int)(((16 - (reinterpret_cast<uintptr_t>(src) & 15)) & 15) >> 2);
@@ -522,12 +647,14 @@ __device__ __forceinline__ void stage_syndromes(const int32_t* src, int nr, int 
   }
 }
 
-template <bool ERASURE>
-__global__ void __launch_bounds__(kThreads, 8) rs_decode_kernel(const Params p) {
-  __shared__ int s_tab[4 * 256];
+template <int M, bool ERASURE>
+__global__ void __launch_bounds__(kThreads, 8) rs_decode_kernel(const ParamsT<M> p) {
+  constexpr int kFs = Field<M>::kFs;
+  constexpr int kTable = Field<M>::kTable;
+  __shared__ int s_tab[4 * kTable];
   __shared__ int s_va[kMaxRoots];
   __shared__ uint8_t s_err[kThreads];
-  extern __shared__ __align__(16) uint8_t s_syn[];  // [kThreads][syndrome_stride(nr)]
+  extern __shared__ __align__(16) uint8_t s_syn[];  // [kThreads][syndrome_stride(nr * sizeof(Sym))]
 
   const int tid = threadIdx.x;
   const long long row0 = (long long)blockIdx.x * kThreads;
@@ -535,52 +662,56 @@ __global__ void __launch_bounds__(kThreads, 8) rs_decode_kernel(const Params p) 
   const int rows = left < kThreads ? (int)left : kThreads;
   const int size = p.size, nr = p.nr;
 
-  for (int i = tid; i < 4 * 256; i += kThreads) s_tab[i] = p.tables[i];
+  for (int i = tid; i < 4 * kTable; i += kThreads) s_tab[i] = p.tables[i];
   // verify-stage row constants a_i = ((fcr + i) * prim) mod fs
   for (int i = tid; i < nr; i += kThreads) s_va[i] = ((p.fcr + i) * p.prim) % kFs;
   s_err[tid] = 0;
   __syncthreads();  // tables in, flags cleared
-  stage_syndromes(p.s_log + row0 * nr, nr, rows, s_tab + 256, s_syn, s_err);
+  stage_syndromes<M>(p.s_log + row0 * nr, nr, rows, s_tab + kTable, s_syn, s_err);
   __syncthreads();  // syndromes in
 
   // Every thread goes through the Chien sweep, those past the last row
   // too: it is the whole warp's.
-  const gf8::Tables gf{s_tab, s_tab + 256};
+  const galois::Tables<M> gf{s_tab, s_tab + kTable};
   const bool live = tid < rows;
   const long long row = row0 + tid;
-  const uint8_t* S = s_syn + tid * syndrome_stride(nr);
-  uint8_t el[kMaxRoots + 1];
+  const Sym<M>* S = reinterpret_cast<const Sym<M>*>(
+      s_syn + tid * syndrome_stride(nr * (int)sizeof(Sym<M>)));
+  Sym<M> el[kMaxRoots + 1];
   const bool has_err = live && s_err[tid];
   int deg = 0;
-  if (has_err) deg = locate_row<ERASURE>(p, gf, s_tab + 768, row, S, el);
-  uint32_t hits[kSweepSteps];
-  chien_sweep(gf, el, deg, hits);
+  if (has_err) deg = locate_row<M, ERASURE>(p, gf, s_tab + 3 * kTable, row, S, el);
+  typename SweepOut<M>::type hits;
+  chien_sweep(p, gf, el, deg, hits);
   // The warp's rows copied through: a warp past the last row has none.
   const int lane = tid & 31;
   const int wrow = tid - lane;
   const int wrows = rows - wrow < 32 ? (rows - wrow > 0 ? rows - wrow : 0) : 32;
-  copy_through<32>(p.data + (row0 + wrow) * size, p.data_out + (row0 + wrow) * size,
-                   wrows * size, lane);
-  copy_through<32>(p.parity + (row0 + wrow) * nr, p.parity_out + (row0 + wrow) * nr,
-                   wrows * nr, lane);
+  constexpr int kSymBytes = (int)sizeof(Sym<M>);
+  copy_through<32>(reinterpret_cast<const uint8_t*>(p.data + (row0 + wrow) * size),
+                   reinterpret_cast<uint8_t*>(p.data_out + (row0 + wrow) * size),
+                   wrows * size * kSymBytes, lane);
+  copy_through<32>(reinterpret_cast<const uint8_t*>(p.parity + (row0 + wrow) * nr),
+                   reinterpret_cast<uint8_t*>(p.parity_out + (row0 + wrow) * nr),
+                   wrows * nr * kSymBytes, lane);
   __syncwarp();
   if (live) {
     bool ok = !has_err;  // no syndrome errors, or (degree 0) fail_deg
     int corrected = 0;
     if (deg > 0) {
-      const uint8_t* din = p.data + row * size;
-      const uint8_t* pin = p.parity + row * nr;
-      uint8_t* dout = p.data_out + row * size;
-      uint8_t* pout = p.parity_out + row * nr;
-      // the input byte XOR c over the copy, which __syncwarp put before this
+      const Sym<M>* din = p.data + row * size;
+      const Sym<M>* pin = p.parity + row * nr;
+      Sym<M>* dout = p.data_out + row * size;
+      Sym<M>* pout = p.parity_out + row * nr;
+      // the input symbol XOR c over the copy, which __syncwarp put before this
       const auto fix = [=](int j, int c) {
         if (j < size)
           dout[j] = din[j] ^ c;
         else
           pout[j - size] = pin[j - size] ^ c;
       };
-      ok = finish_row<ERASURE>(p, gf, s_tab + 512, s_tab + 768, s_va, S, el, deg, hits, row, fix,
-                               &corrected);
+      ok = finish_row<M, ERASURE>(p, gf, s_tab + 2 * kTable, s_tab + 3 * kTable, s_va, S, el, deg,
+                                  hits, row, fix, &corrected);
     }
     p.ok_out[row] = ok;
     p.corrected_out[row] = corrected;
@@ -806,6 +937,148 @@ inline const void* syndrome_kernel(int nr) {
   }
 }
 
+// ----------------------------------------------------------- wide syndromes
+//
+// The syndromes of rows of 16-bit symbols (m = 10, models/rs_cuda.py
+// `WIDE_M`), the byte kernel's division by the factors of g(x) with a
+// ten-bit step: factor f divides by h_f(x) = x^(16 - r_f) g_f(x), monic of
+// degree 16, keeping the remainder's 16 coefficients a 16-bit half-word
+// each in eight registers; a step takes the top coefficient, shifts the
+// words up a half-word with the symbol entering at the bottom (eight byte
+// permutes) and XORs in T_f[top], 32 bytes, two 16-byte loads from
+// [F][2][1024] halves (the low and the high 8 coefficients, so that an
+// entry's two loads fall in all eight 16-byte bank groups).  The tail
+// evaluates each remainder at its factor's roots on log tables: S_i =
+// XOR_b antilog[log R_b + va_i b], an antilog table thrice over whose
+// last third is zero and the log of zero 2 fs, so that no term branches.
+// What bounds it: shared-memory bandwidth.  T is 32 KB a factor (65 KB at
+// nr = 30), so there is no room for the byte kernel's lane copies, and a
+// warp's 16-byte loads of random entries take about 2.3 times the
+// wavefronts of conflict-free ones: about 37 wavefronts a warp and symbol
+// at nr = 30, where the byte kernel at nr = 32 takes 8.  Each thread reads
+// its own row from device memory, 16 bytes at a time where aligned; the
+// L1 holds a warp's 32 rows' lines while it divides them, which is why a
+// block asks for two blocks an SM, not three: the launcher sets the
+// carveout to the least that holds two (`pp_rs_syndrome_shape`), and the
+// rest of the SM's 256 KB, about 90 KB, is L1.  Persistent blocks, one
+// thread a row, rows a grid apart.
+
+constexpr int kWideM = 10;
+constexpr int kWideFs = Field<kWideM>::kFs;
+constexpr int kWideTable = Field<kWideM>::kTable;
+constexpr int kWideSynThreads = 256;   // threads a block of the wide syndrome kernel
+constexpr int kWideSynBlocks = 2;      // blocks an SM it asks for
+
+struct WideSynParams {
+  const uint16_t* data;    // [B, size]
+  const uint16_t* parity;  // [B, nr]
+  const uint4* tables;     // models/rs_cuda.py syndrome_tables at m = 10, as laid out in shared memory
+  int32_t* s_log_out;      // [B, nr]
+  int batch, size, nr;
+};
+
+// The wide kernel's dynamic shared bytes, its tables as the host lays them
+// out: T [F][2][2^m] 16-byte halves, the antilog table thrice over and the
+// log table (uint16 each, the log of zero 2 fs), and va_i b mod fs [nr][16]
+// (uint16).
+__host__ __device__ constexpr int wide_syndrome_smem(int factors, int nr) {
+  return factors * 2 * kWideTable * 16 + 4 * kWideTable * 2 + nr * kFactorRoots * 2;
+}
+
+// One step of every factor's division: R = x R + v - top h_f.
+template <int F>
+__device__ __forceinline__ void divide_step_wide(uint32_t (&R)[F][8], const uint4* t, uint32_t v) {
+#pragma unroll
+  for (int f = 0; f < F; ++f) {
+    const uint32_t top = R[f][7] >> 16;
+#pragma unroll
+    for (int q = 7; q > 0; --q) R[f][q] = __byte_perm(R[f][q - 1], R[f][q], 0x5432);
+    R[f][0] = __byte_perm(v, R[f][0], 0x5410);
+    const uint4 lo = t[2 * f * kWideTable + (int)top];
+    const uint4 hi = t[(2 * f + 1) * kWideTable + (int)top];
+    R[f][0] ^= lo.x;
+    R[f][1] ^= lo.y;
+    R[f][2] ^= lo.z;
+    R[f][3] ^= lo.w;
+    R[f][4] ^= hi.x;
+    R[f][5] ^= hi.y;
+    R[f][6] ^= hi.z;
+    R[f][7] ^= hi.w;
+  }
+}
+
+// Divides by the remainders the `len` symbols at src (device memory, 2-byte
+// aligned), each cut to its m bits as the plain version's `& fs` does:
+// 16 bytes a load from src's first 16-byte boundary, the symbols before it
+// and after the last whole 16 bytes one at a time.
+template <int F>
+__device__ __forceinline__ void divide_row_wide(uint32_t (&R)[F][8], const uint4* t,
+                                                const uint16_t* src, int len) {
+  int j = 0;
+  for (; j < len && (reinterpret_cast<uintptr_t>(src + j) & 15); ++j)
+    divide_step_wide<F>(R, t, src[j] & kWideFs);
+  const uint4* v = reinterpret_cast<const uint4*>(src + j);
+  for (; j + 8 <= len; j += 8, ++v) {
+    const uint4 x = __ldg(v);
+    const uint32_t w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      divide_step_wide<F>(R, t, w[q] & kWideFs);
+      divide_step_wide<F>(R, t, (w[q] >> 16) & kWideFs);
+    }
+  }
+  for (; j < len; ++j) divide_step_wide<F>(R, t, src[j] & kWideFs);
+}
+
+template <int F>
+__global__ void __launch_bounds__(kWideSynThreads, kWideSynBlocks)
+    rs_syndrome_wide_kernel(const WideSynParams p) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const uint4* s_t = reinterpret_cast<const uint4*>(smem);                          // [F][2][2^m]
+  const uint16_t* s_alog = reinterpret_cast<const uint16_t*>(smem + F * 2 * kWideTable * 16);  // [3][2^m]
+  const uint16_t* s_log = s_alog + 3 * kWideTable;                                  // [2^m]
+  const uint16_t* s_exp = s_log + kWideTable;                                       // [nr][16]
+
+  const int tid = threadIdx.x;
+  const int nr = p.nr, size = p.size;
+  const int words = wide_syndrome_smem(F, nr) / 16;
+  for (int i = tid; i < words; i += kWideSynThreads)
+    reinterpret_cast<uint4*>(smem)[i] = p.tables[i];
+  __syncthreads();  // tables in
+
+  for (long long row = (long long)blockIdx.x * kWideSynThreads + tid; row < p.batch;
+       row += (long long)gridDim.x * kWideSynThreads) {
+    uint32_t R[F][8] = {};
+    divide_row_wide<F>(R, s_t, p.data + row * size, size);
+    divide_row_wide<F>(R, s_t, p.parity + row * nr, nr);
+    int32_t* out = p.s_log_out + row * nr;
+#pragma unroll
+    for (int f = 0; f < F; ++f) {
+      int lr[kFactorRoots];  // log R_b, 2 fs for zero
+#pragma unroll
+      for (int b = 0; b < kFactorRoots; ++b) lr[b] = s_log[(R[f][b >> 1] >> (16 * (b & 1))) & 0xFFFF];
+      const int roots = nr - kFactorRoots * f < kFactorRoots ? nr - kFactorRoots * f : kFactorRoots;
+      for (int j = 0; j < roots; ++j) {
+        const uint16_t* ex = s_exp + (kFactorRoots * f + j) * kFactorRoots;
+        int acc = 0;
+#pragma unroll
+        for (int b = 0; b < kFactorRoots; ++b) acc ^= s_alog[lr[b] + ex[b]];
+        out[kFactorRoots * f + j] = acc ? s_log[acc] : kWideFs;
+      }
+    }
+  }
+}
+
+// The wide syndrome kernel for nr roots: F = ceil(nr / 16) factors.
+inline const void* wide_syndrome_kernel(int nr) {
+  switch ((nr + kFactorRoots - 1) / kFactorRoots) {
+    case 1: return reinterpret_cast<const void*>(rs_syndrome_wide_kernel<1>);
+    case 2: return reinterpret_cast<const void*>(rs_syndrome_wide_kernel<2>);
+    case 3: return reinterpret_cast<const void*>(rs_syndrome_wide_kernel<3>);
+    default: return reinterpret_cast<const void*>(rs_syndrome_wide_kernel<4>);
+  }
+}
+
 #ifndef PP_RS_STAMPED  // the stamped copy of rs_kernel.py --breakdown times the decode kernel alone
 
 // ------------------------------------------------------------------ stripes
@@ -991,7 +1264,7 @@ __device__ __forceinline__ uint32_t stripe_map(const StripeParams& p, const int*
 // round while any lane has a column left: the sweep is the warp's.
 // Returns the columns that are not ok.
 template <bool VEC>
-__device__ int stripe_errata(const StripeParams& p, const gf8::Tables& gf, const int* s_tab,
+__device__ int stripe_errata(const StripeParams& p, const galois::Tables<8>& gf, const int* s_tab,
                              const int* va, const int* lost, const int* ecount, uint32_t todo,
                              long long base) {
   const int n = p.n, nr = p.nr, e = p.e;
@@ -1013,7 +1286,7 @@ __device__ int stripe_errata(const StripeParams& p, const gf8::Tables& gf, const
       for (int j = 0; j < n; ++j) {
         if (!word[j]) continue;
         const int lx = gf.log[word[j]];
-        for (int i = 0; i < nr; ++i) syn[i] ^= gf.antilog[gf8::mod_fs(lx + va[i] * (n - 1 - j))];
+        for (int i = 0; i < nr; ++i) syn[i] ^= gf.antilog[galois::mod_fs<8>(lx + va[i] * (n - 1 - j))];
       }
       for (int i = 0; i < nr; ++i) fine &= syn[i] == 0;
       q.eras_pos = lost;
@@ -1024,14 +1297,14 @@ __device__ int stripe_errata(const StripeParams& p, const gf8::Tables& gf, const
       q.fcr = p.fcr;
       q.prim = p.prim;
       q.prim_inv = p.prim_inv;
-      if (!fine) deg = locate_row<true>(q, gf, s_tab + 768, 0, syn, lam);
+      if (!fine) deg = locate_row<8, true>(q, gf, s_tab + 768, 0, syn, lam);
     }
     uint32_t hits[kSweepSteps];
-    chien_sweep(gf, lam, deg, hits);
+    chien_sweep(q, gf, lam, deg, hits);
     if (have) {
       int count = 0;
       if (deg > 0)
-        fine = finish_row<false>(q, gf, s_tab + 512, s_tab + 768, va, syn, lam, deg, hits, 0,
+        fine = finish_row<8, false>(q, gf, s_tab + 512, s_tab + 768, va, syn, lam, deg, hits, 0,
                                  [&word](int j, int c) { word[j] ^= c; }, &count);
       for (int t = 0; t < e; ++t) p.rebuilt[t * L + col] = word[lost[t]];
       p.ok_out[col] = fine;
@@ -1066,7 +1339,7 @@ __global__ void __launch_bounds__(kStripeThreads, 4) rs_stripe_kernel(const Stri
   }
   __syncthreads();
 
-  const gf8::Tables gf{s_tab, s_tab + 256};
+  const galois::Tables<8> gf{s_tab, s_tab + 256};
   const uint32_t* nib = s_nib + (tid & 31);
   const long long per_chunk = (long long)kStripeThreads * kStripeCols;
   const long long chunks = (p.L + per_chunk - 1) / per_chunk;
@@ -1119,58 +1392,103 @@ cudaError_t launch_stripe(const StripeParams& p, int smem, int grid, cudaStream_
 
 }  // namespace
 
-// Sets the syndrome kernel up on `device` for nr roots: writes its copies
-// of T (kCopies where they fit a block's shared memory, so that the lanes'
-// lookups of T fall in distinct banks, else 1) to *copies and its dynamic
-// shared bytes a block to *smem, lets it use all the device's shared
-// memory, and returns how many of its blocks an SM holds; a negative
-// cudaError_t on an error.
-extern "C" int pp_rs_syndrome_shape(int nr, int device, int* copies, int* smem) {
-  if (nr < 1 || nr > kMaxRoots) return -(int)cudaErrorInvalidValue;
+// The carveout, in percent of the SM's shared memory, that holds `blocks`
+// blocks of `kern` at `smem` dynamic shared bytes each, rounded up.
+static cudaError_t carveout_for(const void* kern, int blocks, int smem, int device, int* pct) {
+  cudaFuncAttributes attr;
+  int sm_smem = 0, reserved = 0;
+  cudaError_t err;
+  if ((err = cudaFuncGetAttributes(&attr, kern)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sm_smem, cudaDevAttrMaxSharedMemoryPerMultiprocessor,
+                                    device)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock,
+                                    device)) != cudaSuccess)
+    return err;
+  const long long need = (long long)blocks * ((long long)attr.sharedSizeBytes + smem + reserved);
+  *pct = (int)((100 * need + sm_smem - 1) / sm_smem);
+  return cudaSuccess;
+}
+
+// Sets the syndrome kernel of m-bit symbols (m = 8 or 10) up on `device`
+// for nr roots: writes its copies of T (m = 8: kCopies where they fit a
+// block's shared memory, so that the lanes' lookups of T fall in distinct
+// banks, else 1; m = 10: 1) to *copies and its dynamic shared bytes a
+// block to *smem, lets it use all the device's shared memory (m = 10: as
+// much of it as kWideSynBlocks blocks an SM need, the rest left to L1),
+// and returns how many of its blocks an SM holds; a negative cudaError_t
+// on an error.
+extern "C" int pp_rs_syndrome_shape(int m, int nr, int device, int* copies, int* smem) {
+  if ((m != 8 && m != kWideM) || nr < 1 || nr > kMaxRoots) return -(int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return -(int)err;
   int max_smem = 0;
   err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return -(int)err;
-  const void* kern = syndrome_kernel(nr);
+  const int factors = (nr + kFactorRoots - 1) / kFactorRoots;
+  const int threads = m == 8 ? kSynThreads : kWideSynThreads;
+  const void* kern = m == 8 ? syndrome_kernel(nr) : wide_syndrome_kernel(nr);
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
   if (err != cudaSuccess) return -(int)err;
-  err = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
-                             cudaSharedmemCarveoutMaxShared);
+  int pct = cudaSharedmemCarveoutMaxShared;
+  if (m == 8) {
+    *copies = syndrome_smem(factors, kCopies) <= max_smem ? kCopies : 1;
+    *smem = syndrome_smem(factors, *copies);
+  } else {
+    *copies = 1;
+    *smem = wide_syndrome_smem(factors, nr);
+    if ((err = carveout_for(kern, kWideSynBlocks, *smem, device, &pct)) != cudaSuccess)
+      return -(int)err;
+    if (pct > 100) pct = 100;
+  }
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout, pct);
   if (err != cudaSuccess) return -(int)err;
-  const int factors = (nr + kFactorRoots - 1) / kFactorRoots;
-  *copies = syndrome_smem(factors, kCopies) <= max_smem ? kCopies : 1;
-  *smem = syndrome_smem(factors, *copies);
   int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kSynThreads, *smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads, *smem);
   return err != cudaSuccess ? -(int)err : per_sm;
 }
 
 // Writes the log-form syndromes s_log_out [B, nr] int32 (log[S_i], fs
 // where S_i = 0: the decode's s_log) of the rows data [B, size] | parity
-// [B, nr] on `stream` (a cudaStream_t) of `device`, in `grid` blocks of
-// `smem` dynamic shared bytes with `copies` copies of T
-// (pp_rs_syndrome_shape first, for all three); allocates nothing.
-// `tables` is models/rs_cuda.py `syndrome_tables` for this config,
-// `log_tables` the decode's [4, 256] (log first).  Returns the launch's
-// cudaError_t.
-extern "C" int pp_rs_syndrome(const void* data, const void* parity, const void* tables,
+// [B, nr] of m-bit symbols (bytes for m = 8, 16-bit words for m = 10) on
+// `stream` (a cudaStream_t) of `device`, in `grid` blocks of `smem` dynamic
+// shared bytes with `copies` copies of T (pp_rs_syndrome_shape first, for
+// all three); allocates nothing.  `tables` is models/rs_cuda.py
+// `syndrome_tables` for this config, `log_tables` the decode's [4, 256]
+// (log first; m = 8 only).  Returns the launch's cudaError_t.
+extern "C" int pp_rs_syndrome(int m, const void* data, const void* parity, const void* tables,
                               const void* log_tables, void* s_log_out, int batch, int size,
                               int nr, int copies, int grid, int smem, int device, void* stream) {
-  if (batch < 1 || size < 1 || nr < 1 || nr > kMaxRoots || size + nr > kFs || grid < 1 ||
-      (copies != 1 && copies != kCopies) ||
-      smem < syndrome_smem((nr + kFactorRoots - 1) / kFactorRoots, copies))
+  const int fs = m == 8 ? kFs : kWideFs;
+  const int factors = (nr + kFactorRoots - 1) / kFactorRoots;
+  if ((m != 8 && m != kWideM) || batch < 1 || size < 1 || nr < 1 || nr > kMaxRoots ||
+      size + nr > fs || grid < 1)
+    return (int)cudaErrorInvalidValue;
+  if (m == 8 ? (copies != 1 && copies != kCopies) || smem < syndrome_smem(factors, copies)
+             : smem < wide_syndrome_smem(factors, nr))
     return (int)cudaErrorInvalidValue;
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (m == kWideM) {
+    const WideSynParams w = {static_cast<const uint16_t*>(data),
+                             static_cast<const uint16_t*>(parity),
+                             static_cast<const uint4*>(tables),
+                             static_cast<int32_t*>(s_log_out), batch, size, nr};
+    switch (factors) {
+      case 1: rs_syndrome_wide_kernel<1><<<grid, kWideSynThreads, smem, st>>>(w); break;
+      case 2: rs_syndrome_wide_kernel<2><<<grid, kWideSynThreads, smem, st>>>(w); break;
+      case 3: rs_syndrome_wide_kernel<3><<<grid, kWideSynThreads, smem, st>>>(w); break;
+      default: rs_syndrome_wide_kernel<4><<<grid, kWideSynThreads, smem, st>>>(w); break;
+    }
+    return (int)cudaGetLastError();
+  }
   const SynParams p = {static_cast<const uint8_t*>(data),
                        static_cast<const uint8_t*>(parity),
                        static_cast<const uint4*>(tables),
                        static_cast<const int32_t*>(log_tables),
                        static_cast<int32_t*>(s_log_out),
                        batch, size, nr, copies};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch ((nr + kFactorRoots - 1) / kFactorRoots) {
+  switch (factors) {
     case 1: rs_syndrome_kernel<1><<<grid, kSynThreads, smem, st>>>(p); break;
     case 2: rs_syndrome_kernel<2><<<grid, kSynThreads, smem, st>>>(p); break;
     case 3: rs_syndrome_kernel<3><<<grid, kSynThreads, smem, st>>>(p); break;
@@ -1179,38 +1497,42 @@ extern "C" int pp_rs_syndrome(const void* data, const void* parity, const void* 
   return (int)cudaGetLastError();
 }
 
-// Sets the decode kernel (erasure: its erasure form) up on `device` for nr
-// roots: writes its dynamic shared bytes a block to *smem, gives it the
-// least shared-memory carveout (a percentage, written to *carveout) that
-// keeps as many of its blocks an SM as the largest would, so that the rest
-// of the SM's shared memory and L1 is L1, and returns how many of its
-// blocks an SM then holds; a negative cudaError_t on an error.
-extern "C" int pp_rs_decode_shape(int erasure, int nr, int device, int* smem, int* carveout) {
-  if (nr < 1 || nr > kMaxRoots) return -(int)cudaErrorInvalidValue;
+// The decode kernel of m-bit symbols (8, or 10 in its plain form only),
+// in its erasure form or not; nullptr for a form there is none of.
+static const void* decode_kernel(int m, int erasure) {
+  if (m == 8)
+    return erasure ? reinterpret_cast<const void*>(rs_decode_kernel<8, true>)
+                   : reinterpret_cast<const void*>(rs_decode_kernel<8, false>);
+  if (m == kWideM && !erasure) return reinterpret_cast<const void*>(rs_decode_kernel<kWideM, false>);
+  return nullptr;
+}
+
+// Sets the decode kernel of m-bit symbols (erasure: its erasure form) up
+// on `device` for nr roots: writes its dynamic shared bytes a block to
+// *smem, gives it the least shared-memory carveout (a percentage, written
+// to *carveout) that keeps as many of its blocks an SM as the largest
+// would, so that the rest of the SM's shared memory and L1 is L1, and
+// returns how many of its blocks an SM then holds; a negative cudaError_t
+// on an error.
+extern "C" int pp_rs_decode_shape(int m, int erasure, int nr, int device, int* smem,
+                                  int* carveout) {
+  const void* kern = decode_kernel(m, erasure);
+  if (kern == nullptr || nr < 1 || nr > kMaxRoots) return -(int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return -(int)err;
-  const void* kern = erasure ? reinterpret_cast<const void*>(rs_decode_kernel<true>)
-                             : reinterpret_cast<const void*>(rs_decode_kernel<false>);
-  *smem = decode_smem(nr);
+  *smem = decode_smem(nr * (m == 8 ? 1 : 2));
   const auto per_sm = [&](int pct, int* blocks) {
     cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout, pct);
     return e != cudaSuccess ? e
                             : cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kern, kThreads,
                                                                             *smem);
   };
-  int most = 0, sm_smem = 0, reserved = 0;
-  cudaFuncAttributes attr;
+  int most = 0, pct = 0;
   if ((err = per_sm(cudaSharedmemCarveoutMaxShared, &most)) != cudaSuccess ||
-      (err = cudaFuncGetAttributes(&attr, kern)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&sm_smem, cudaDevAttrMaxSharedMemoryPerMultiprocessor,
-                                    device)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock,
-                                    device)) != cudaSuccess)
+      (err = carveout_for(kern, most, *smem, device, &pct)) != cudaSuccess)
     return -(int)err;
   // the blocks' shared bytes as a share of the SM's, rounded up; the
   // carveout is rounded up again to a size the SM has
-  const long long need = (long long)most * ((long long)attr.sharedSizeBytes + *smem + reserved);
-  int pct = (int)((100 * need + sm_smem - 1) / sm_smem);
   int blocks = 0;
   for (;; ++pct) {
     if ((err = per_sm(pct < 100 ? pct : 100, &blocks)) != cudaSuccess) return -(int)err;
@@ -1220,13 +1542,14 @@ extern "C" int pp_rs_decode_shape(int erasure, int nr, int device, int* smem, in
   return blocks;
 }
 
-// Launches the decode on `stream` (a cudaStream_t) of `device`, in the
-// carveout pp_rs_decode_shape set (a launch before it runs in the card's
-// default); allocates nothing.  s_log: the log-form syndromes [B, nr]
-// (pp_rs_syndrome's, or the caller's in the external-syndrome path).  erasure: 1 starts BM from
-// the erasure locator of eras_pos, eras_cnt (eras_width wide), 0 from 1.
-// Returns the launch's cudaError_t.
-extern "C" int pp_rs_decode(int erasure, const void* data, const void* parity,
+// Launches the decode of m-bit symbols (8: bytes; 10: 16-bit words, plain
+// form only) on `stream` (a cudaStream_t) of `device`, in the carveout
+// pp_rs_decode_shape set (a launch before it runs in the card's default);
+// allocates nothing.  s_log: the log-form syndromes [B, nr]
+// (pp_rs_syndrome's, or the caller's in the external-syndrome path).
+// erasure: 1 starts BM from the erasure locator of eras_pos, eras_cnt
+// (eras_width wide), 0 from 1.  Returns the launch's cudaError_t.
+extern "C" int pp_rs_decode(int m, int erasure, const void* data, const void* parity,
                             const void* eras_pos, const void* eras_cnt,
                             int eras_width, const void* s_log,
                             const void* tables, void* data_out,
@@ -1234,13 +1557,38 @@ extern "C" int pp_rs_decode(int erasure, const void* data, const void* parity,
                             void* corrected_out, int batch, int size, int nr,
                             int fcr, int prim, int prim_inv, int device,
                             void* stream) {
-  if (batch < 1 || size < 1 || nr < 1 || nr > kMaxRoots || size + nr > kFs ||
-      s_log == nullptr)
+  const int fs = m == 8 ? kFs : kWideFs;
+  if (decode_kernel(m, erasure) == nullptr || batch < 1 || size < 1 || nr < 1 ||
+      nr > kMaxRoots || size + nr > fs || s_log == nullptr)
     return (int)cudaErrorInvalidValue;
   if (erasure && (eras_width < 1 || eras_width > nr))
     return (int)cudaErrorInvalidValue;
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
+  const dim3 grid((unsigned)((batch + kThreads - 1) / kThreads));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (m == kWideM) {
+    ParamsT<kWideM> p;
+    p.data = static_cast<const uint16_t*>(data);
+    p.parity = static_cast<const uint16_t*>(parity);
+    p.eras_pos = nullptr;
+    p.eras_cnt = nullptr;
+    p.eras_width = 0;
+    p.s_log = static_cast<const int32_t*>(s_log);
+    p.tables = static_cast<const int32_t*>(tables);
+    p.data_out = static_cast<uint16_t*>(data_out);
+    p.parity_out = static_cast<uint16_t*>(parity_out);
+    p.ok_out = static_cast<uint8_t*>(ok_out);
+    p.corrected_out = static_cast<int32_t*>(corrected_out);
+    p.batch = batch;
+    p.size = size;
+    p.nr = nr;
+    p.fcr = fcr;
+    p.prim = prim;
+    p.prim_inv = prim_inv;
+    rs_decode_kernel<kWideM, false><<<grid, kThreads, decode_smem(2 * nr), st>>>(p);
+    return (int)cudaGetLastError();
+  }
 
   Params p;
   p.data = static_cast<const uint8_t*>(data);
@@ -1261,12 +1609,10 @@ extern "C" int pp_rs_decode(int erasure, const void* data, const void* parity,
   p.prim = prim;
   p.prim_inv = prim_inv;
 
-  const dim3 grid((unsigned)((batch + kThreads - 1) / kThreads));
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (erasure)
-    rs_decode_kernel<true><<<grid, kThreads, decode_smem(nr), st>>>(p);
+    rs_decode_kernel<8, true><<<grid, kThreads, decode_smem(nr), st>>>(p);
   else
-    rs_decode_kernel<false><<<grid, kThreads, decode_smem(nr), st>>>(p);
+    rs_decode_kernel<8, false><<<grid, kThreads, decode_smem(nr), st>>>(p);
   return (int)cudaGetLastError();
 }
 

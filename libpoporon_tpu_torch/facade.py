@@ -1,11 +1,24 @@
 """Unified codec facade (counterpart of libpoporon_tpu/facade.py).
 
 One `Codec` object per config, operating on batches of codewords
-([B, ...] uint8; a 1-D input is a batch of one) on one torch device: the
-card ("cuda") unless the caller asks for another, such as "cpu".  Without
-a card the default raises; it never falls back to the CPU.  Inputs (NumPy
+([B, ...]; a 1-D input is a batch of one) on one torch device: the card
+("cuda") unless the caller asks for another, such as "cpu".  Without a
+card the default raises; it never falls back to the CPU.  Inputs (NumPy
 arrays or tensors) are moved to the codec's device; outputs are tensors
 on it.  Nothing moves work to another device.
+
+Codewords are bytes (uint8), but for RS codes of symbols wider than a
+byte, whose symbols are 16-bit words (int16, read as unsigned): the
+codec's `symbol_dtype`, which follows from the config.  RS(544,514) over
+GF(2^10), the KP4 code of 400G Ethernet, is
+
+    codec = create(RSConfig(10, 0x409, 0, 1, 30))    # symbol_dtype int16
+    parity = codec.encode(data).parity               # data [B, 514], each < 1024
+    res = codec.decode(data, parity)
+
+Past m = 8 an RS codec encodes and runs the plain decode; erasure and
+external-syndrome decodes and `reconstruct` raise ValueError there, and
+no symbol is ever cut to a byte.
 
 As in the JAX package, LDPC `encode` returns the interleaved data where
 the config interleaves, and LDPC `decode` reports the iterations used in
@@ -30,14 +43,14 @@ from .models.bch import BCHCodec
 from .models.ldpc import LDPCCodec
 from .models.rs import RSCodec
 from .utils.profiling import span
-from .utils.tensors import as_tensor
+from .utils.tensors import as_symbols, as_tensor
 
 
 @dataclasses.dataclass
 class DecodeResult:
     ok: torch.Tensor          # bool [B] (or scalar)
-    data: torch.Tensor        # uint8 [B, info]
-    parity: torch.Tensor      # uint8 [B, parity]
+    data: torch.Tensor        # symbol_dtype [B, info]
+    parity: torch.Tensor      # symbol_dtype [B, parity]
     corrected: torch.Tensor   # int32 [B]; for LDPC the iterations used
 
     def __iter__(self):
@@ -72,6 +85,8 @@ class Codec:
         self.fec_type = config.fec_type
         self.last_corrected = 0
         self.iterations_used = 0
+        # bits a symbol of the codewords in and out: RS's m, else bytes
+        self._m = config.symbol_size if isinstance(config, RSConfig) else 8
         if isinstance(config, RSConfig):
             self._rs = RSCodec(config, device)
             self.device = self._rs.device
@@ -102,10 +117,18 @@ class Codec:
             return self._ldpc.info_bytes
         return self._bch.data_bytes
 
+    @property
+    def symbol_dtype(self) -> torch.dtype:
+        """The dtype of codewords in and out: uint8, or for RS symbols of
+        more than 8 bits int16 (models/rs.py RSCodec)."""
+        if self.fec_type == FecType.RS:
+            return self._rs.symbol_dtype
+        return torch.uint8
+
     # --------------------------------------------------------- encode
 
     def encode(self, data) -> EncodeResult:
-        data = as_tensor(data, torch.uint8, self.device)
+        data = as_symbols(data, self._m, self.device)
         squeeze = data.ndim == 1
         if squeeze:
             data = data[None]
@@ -144,8 +167,8 @@ class Codec:
     def decode(self, data, parity, erasures=None, ext_syndrome=None,
                soft_llr=None) -> DecodeResult:
         with span("poporon.facade.decode"):
-            data = as_tensor(data, torch.uint8, self.device)
-            parity = as_tensor(parity, torch.uint8, self.device)
+            data = as_symbols(data, self._m, self.device)
+            parity = as_symbols(parity, self._m, self.device)
             if soft_llr is not None:
                 soft_llr = as_tensor(soft_llr, torch.int8, self.device)
             squeeze = data.ndim == 1
@@ -187,7 +210,6 @@ class Codec:
         with span("poporon.facade.reconstruct"):
             if self.fec_type != FecType.RS:
                 raise TypeError(f"reconstruct takes an RS configuration, not {self.fec_type.name}")
-            cells = as_tensor(cells, torch.uint8, self.device)
             return ReconstructResult(*self._rs.reconstruct(cells, lost))
 
     def _decode_ldpc(self, data, parity, soft_llr) -> DecodeResult:

@@ -38,7 +38,7 @@ from ..ops.gf2 import gf2_matmul
 from ..ops.gfint import gf_inv_clmul, gf_mul, gf_mul_clmul
 from ..utils.cache import LruCache
 from ..utils.profiling import span
-from ..utils.tensors import as_tensor
+from ..utils.tensors import as_symbols, as_tensor, symbol_dtype
 from .rs_cuda import RSCudaDecoder, gf_tables
 
 # The arrays a codec is built from, by the JAX codec's attribute names
@@ -75,15 +75,18 @@ def _build_genpoly(gf: GF, fcr: int, prim: int, num_roots: int) -> np.ndarray:
     return gf.exp2log[g].astype(np.int64)  # log form; sentinel fs for zero coeffs
 
 
-def _encode_np(gf: GF, genlog: np.ndarray, num_roots: int, data: np.ndarray) -> np.ndarray:
-    """Batched NumPy systematic LFSR — value-identical to encode.c:120-144.
+def _encode_np(gf: GF, genlog: np.ndarray, num_roots: int, data: np.ndarray,
+               parity: np.ndarray | None = None) -> np.ndarray:
+    """Batched NumPy systematic LFSR — value-identical to encode.c:120-144,
+    from the all-zero register, or from `parity` [B, nr] where given.
     Derives the encode bit-matrix, and is an independent encode reference."""
     fs = gf.field_size
     log2exp = gf.log2exp.astype(np.int64)
     exp2log = gf.exp2log.astype(np.int64)
     B, size = data.shape
     genrev = genlog[num_roots - 1 :: -1].copy()  # genrev[l] = genlog[nr-1-l]
-    parity = np.zeros((B, num_roots), dtype=np.int64)
+    if parity is None:
+        parity = np.zeros((B, num_roots), dtype=np.int64)
     for i in range(size):
         fb = exp2log[(data[:, i] & fs) ^ parity[:, 0]]
         valid = (fb != fs)[:, None]
@@ -93,6 +96,22 @@ def _encode_np(gf: GF, genlog: np.ndarray, num_roots: int, data: np.ndarray) -> 
         )
         parity = shifted ^ contrib
     return parity
+
+
+def _basis_parity(gf: GF, genlog: np.ndarray, nr: int, k: int) -> np.ndarray:
+    """`_encode_np` of the k*m unit words, [k*m, nr]: row p*m + b the parity
+    of the word whose only nonzero symbol is 2^(m-1-b) at position p.  The
+    register stays zero through leading zero symbols, so that row is the
+    register after that one symbol, then k-1-p zero symbols: the same
+    steps, run once for every position instead of once a row."""
+    m = gf.symbol_size
+    state = _encode_np(gf, genlog, nr, (1 << np.arange(m - 1, -1, -1))[:, None])   # [m, nr]
+    zero = np.zeros((m, 1), dtype=np.int64)
+    out = np.empty((k, m, nr), dtype=np.int64)
+    for p in range(k - 1, -1, -1):
+        out[p] = state
+        state = _encode_np(gf, genlog, nr, zero, state)
+    return out.reshape(k * m, nr)
 
 
 def _prim_inverse(prim: int, fs: int) -> int:
@@ -112,11 +131,7 @@ def _build_matrices(gf: GF, fcr: int, prim: int, nr: int, genlog: np.ndarray):
     k = fs - nr
     # Encode matrix: parity response of every data-bit basis vector,
     # obtained by running the (NumPy) LFSR — captures encode.c exactly.
-    basis = np.zeros((k * m, k), dtype=np.int64)
-    for p in range(k):
-        for b in range(m):
-            basis[p * m + b, p] = 1 << (m - 1 - b)
-    parity = _encode_np(gf, genlog, nr, basis)                # [k*m, nr]
+    parity = _basis_parity(gf, genlog, nr, k)                 # [k*m, nr]
     g_enc = _symbols_to_bits_np(parity, m)                    # [k*m, nr*m]
 
     # Syndrome matrix: S_i = sum_j r_j alpha^{(fcr+i)*prim*(fs-1-j)}
@@ -237,8 +252,11 @@ def _scatter_add(values: torch.Tensor, index: torch.Tensor, length: int) -> torc
 
 
 class RSCodec:
-    """Batched Reed-Solomon over GF(2^m), m <= 8 for the byte API, on one
-    torch device, the card by default."""
+    """Batched Reed-Solomon over GF(2^m), m <= 16, on one torch device, the
+    card by default.  Symbols are bytes for m <= 8 and 16-bit words
+    (`symbol_dtype`, int16 read as unsigned) past it, in and out.  Past
+    m = 8 the codec encodes and runs the plain decode only: erasure and
+    external-syndrome decodes and `reconstruct` raise ValueError there."""
 
     def __init__(self, cfg: RSConfig, device: str | torch.device = "cuda",
                  arrays: dict[str, np.ndarray] | None = None):
@@ -252,6 +270,7 @@ class RSCodec:
         self.gf = gf
         self.m = gf.symbol_size
         self.fs = gf.field_size
+        self.symbol_dtype = symbol_dtype(self.m)
         self.fcr = int(cfg.first_consecutive_root)
         self.prim = int(cfg.primitive_element)
         self.num_roots = int(cfg.num_roots)
@@ -299,11 +318,18 @@ class RSCodec:
         codec's, taken with np.asarray."""
         return cls(cfg, device, arrays)
 
+    def _bytes_only(self, what: str) -> None:
+        """ValueError naming `what` where the symbols are wider than a byte."""
+        if self.m > 8:
+            raise ValueError(f"{what} takes symbols of at most 8 bits; this code's are "
+                             f"{self.m} (only encode and the plain decode run past m = 8)")
+
     # ----------------------------------------------------------- encode
 
     def encode(self, data) -> torch.Tensor:
-        """data: uint8 [B, size] (or [size]) -> parity uint8 [B, nr]."""
-        data = as_tensor(data, torch.uint8, self.device)
+        """data: symbols [B, size] (or [size]) -> parity [B, nr], both in
+        `symbol_dtype`."""
+        data = as_symbols(data, self.m, self.device)
         squeeze = data.ndim == 1
         if squeeze:
             data = data[None]
@@ -312,7 +338,7 @@ class RSCodec:
             raise ValueError(f"size {size} exceeds k={self.k}")
         bits = _symbols_to_bits(data.to(torch.int32) & self.fs, self.m)
         pbits = gf2_matmul(bits, self.G_enc[(self.k - size) * self.m:])
-        out = _bits_to_symbols(pbits, self.m).to(torch.uint8)
+        out = _bits_to_symbols(pbits, self.m).to(self.symbol_dtype)
         return out[0] if squeeze else out
 
     # ------------------------------------------------------ decode core
@@ -497,7 +523,7 @@ class RSCodec:
         revert = (fail_pre | fail_verify)[:, None]
         data_out = torch.where(revert, data.to(torch.int32), data_out)
         parity_out = torch.where(revert, parity.to(torch.int32), parity_out)
-        return ok, data_out.to(torch.uint8), parity_out.to(torch.uint8), corrected
+        return ok, data_out.to(self.symbol_dtype), parity_out.to(self.symbol_dtype), corrected
 
     # ------------------------------------------------------ decode paths
 
@@ -577,6 +603,7 @@ class RSCodec:
         launch of the stripe kernel on the card.
         """
         with span("poporon.codec.reconstruct"):
+            self._bytes_only("reconstruct")
             cells = as_tensor(cells, torch.uint8, self.device)
             if cells.ndim != 2:
                 raise ValueError(f"cells must be [n, L], got {tuple(cells.shape)}")
@@ -596,18 +623,23 @@ class RSCodec:
     def decode(self, data, parity, erasures=None, ext_syndrome=None):
         """Batched decode.
 
-        data [B, size] / [size] uint8; parity [B, nr] / [nr].
+        data [B, size] / [size]; parity [B, nr] / [nr]: symbols, moved to
+        the codec's device in `symbol_dtype`.
         erasures: optional (positions [B, E], counts [B]) int32 arrays, or
         a 1-D position list broadcast over the batch.
         ext_syndrome: optional log-form syndromes [B, nr] (sentinel fs =
         "no error"), the external-syndrome path of decode.c:446-464.
-        Inputs are moved to the codec's device.
+        Both for m <= 8 only (ValueError past it).
 
         Returns (ok [B] bool, data, parity, corrected [B] int32).
         """
         with span("poporon.codec.decode"):
-            data = as_tensor(data, torch.uint8, self.device)
-            parity = as_tensor(parity, torch.uint8, self.device)
+            if erasures is not None:
+                self._bytes_only("an erasure decode")
+            if ext_syndrome is not None:
+                self._bytes_only("an external-syndrome decode")
+            data = as_symbols(data, self.m, self.device)
+            parity = as_symbols(parity, self.m, self.device)
             squeeze = data.ndim == 1
             if squeeze:
                 data = data[None]

@@ -4,17 +4,21 @@ Counterpart of libpoporon_tpu/models/rs_pallas.py.  Two kernels serve the
 plain, erasure and external-syndrome decode paths: a syndrome kernel
 (each row divided by the factors of g(x) a byte a step, from the tables of
 `syndrome_tables`) and a decode kernel that starts from log-form
-syndromes.  A third, the stripe kernel, rebuilds the lost cells of
-shard-major stripes (`reconstruct`) from a plan worked out on the host
-once a loss pattern (`stripe_plan`); the JAX
-package has no counterpart.  `RSCudaDecoder` launches them on CUDA
+syndromes.  Both come in GF(2^8), symbols as bytes, and in GF(2^10)
+(`WIDE_M`), symbols as 16-bit words, without the erasure form: there the
+syndrome kernel is `rs_syndrome_wide_kernel` (a ten-bit step, tables from
+`wide_syndrome_tables`) and the decode kernel its m = 10 instantiation.
+A third, the stripe kernel, rebuilds the lost cells of shard-major
+stripes (`reconstruct`) from a plan worked out on the host once a loss
+pattern (`stripe_plan`); the JAX package has no counterpart.  `RSCudaDecoder` launches them on CUDA
 tensors through utils/build.py `launch`, and raises if a launch fails;
 it knows nothing of the codec.  models/rs.py `RSCodec` builds one for a
 codec on a card inside the gate (`RSCudaDecoder.supports`); every other
 codec runs the plain PyTorch version there.  The kernels take any batch
 size, masking the ragged last block themselves, so no host-side padding
-is needed.  `gf_tables`, `syndrome_tables` and `stripe_plan` make the
-kernels' host data, for the launcher and the tests alike.
+is needed.  `gf_tables`, `syndrome_tables`, `wide_syndrome_tables` and
+`stripe_plan` make the kernels' host data, for the launcher and the tests
+alike.
 """
 
 from __future__ import annotations
@@ -30,11 +34,12 @@ import torch
 from ..utils import build
 from ..utils.cache import LruCache
 from ..utils.profiling import span
-from ..utils.tensors import checked
+from ..utils.tensors import checked, symbol_dtype
 
 MODE_PLAIN, MODE_ERASURE, MODE_EXT = 0, 1, 2
 MAX_ROOTS = 64       # the kernel's per-thread arrays
-FS = 255             # the kernels' field: GF(2^8)
+FS = 255             # the byte field GF(2^8), of the stripe kernel
+WIDE_M = 10          # the kernels' other field: GF(2^10), symbols as 16-bit words
 
 STRIPE_CHUNK = 256 * 16        # columns a stripe kernel's block takes at a time
 SYNDROME_TILE = 256            # rows a syndrome kernel's block takes at a time
@@ -209,9 +214,48 @@ def syndrome_tables(exp2log, log2exp, nr: int, fcr: int, prim: int) -> np.ndarra
     return out
 
 
+def wide_syndrome_tables(exp2log, log2exp, nr: int, fcr: int, prim: int) -> np.ndarray:
+    """The wide syndrome kernel's tables (m = 10) from the field's log and
+    antilog tables, as bytes laid out as the kernel holds them in shared
+    memory (rs_decode.cu `wide_syndrome_smem`), all uint16: T [F, 2, 1024,
+    8], F = ceil(nr / 16), half h of entry v of factor f the coefficients
+    8 h .. 8 h + 7 of T_f[v] = v (h_f(x) - x^16), h_f as in
+    `syndrome_tables`; the antilog table thrice over [3 * 1024], the last
+    third zero; the log table [1024] with the log of zero 2 fs, so that a
+    zero coefficient's terms land in that third; and va_i b mod fs [nr,
+    16], va_i = (fcr + i) prim mod fs.  The tail's S_i is then the XOR
+    over b of antilog[log R_b + va_i b]."""
+    log = np.asarray(exp2log, dtype=np.int64)
+    alog = np.asarray(log2exp, dtype=np.int64)
+    fs = len(alog) - 1
+
+    def mul(a, b):
+        a, b = np.broadcast_arrays(np.asarray(a, np.int64), np.asarray(b, np.int64))
+        return np.where((a == 0) | (b == 0), 0, alog[(log[a] + log[b]) % fs])
+
+    va = np.array([((fcr + i) * prim) % fs for i in range(nr)], dtype=np.int64)
+    factors = -(-nr // FACTOR_ROOTS)
+    t = np.zeros((factors, fs + 1, FACTOR_ROOTS), dtype=np.uint16)
+    for f in range(factors):
+        h = np.zeros(FACTOR_ROOTS + 1, dtype=np.int64)     # ascending powers of x
+        roots = va[FACTOR_ROOTS * f:FACTOR_ROOTS * (f + 1)]
+        h[FACTOR_ROOTS - len(roots)] = 1
+        for e in roots:                                     # h *= x + b_i
+            h = np.concatenate([[0], h[:-1]]) ^ mul(h, alog[e])
+        t[f] = mul(np.arange(fs + 1)[:, None], h[None, :FACTOR_ROOTS])
+    halves = t.reshape(factors, fs + 1, 2, 8).transpose(0, 2, 1, 3)
+    alog3 = np.zeros(3 * (fs + 1), dtype=np.uint16)
+    alog3[:2 * fs] = alog[np.arange(2 * fs) % fs]
+    log16 = log.astype(np.uint16)
+    log16[0] = 2 * fs
+    expo = (va[:, None] * np.arange(FACTOR_ROOTS)[None, :]) % fs
+    return np.concatenate([np.ascontiguousarray(halves).reshape(-1), alog3, log16,
+                           expo.reshape(-1).astype(np.uint16)]).view(np.uint8)
+
+
 def gf_tables(rs) -> np.ndarray:
-    """The kernels' GF(2^8) tables of the codec `rs` (models/rs.py
-    RSCodec), int32 [4, 256] on the host: log, antilog, sec and inv."""
+    """The kernels' GF(2^m) tables of the codec `rs` (models/rs.py
+    RSCodec), int32 [4, 2^m] on the host: log, antilog, sec and inv."""
     return torch.stack([rs.exp2log, rs.log2exp, rs.sec_tbl, rs.inv_tbl]).cpu().numpy()
 
 
@@ -222,21 +266,25 @@ class RSCudaDecoder:
     external-syndrome decode one, a stripe decode (`reconstruct`) one.
     `launches` counts every kernel launch, `syndrome_launches` those of
     the syndrome kernel and `stripe_launches` those of the stripe kernel,
-    so that a run can show that its decodes went through the kernels.
+    so that a run can show that its decodes went through the kernels; a
+    launcher serves one field (`m`), so its counts are that field's.
     Every entry takes CUDA tensors on the launcher's card, and raises
-    ValueError for any other.
+    ValueError for any other.  At m = 10 the erasure form and
+    `reconstruct` raise ValueError (models/rs.py sends such a codec only
+    plain decodes).
     """
 
     @staticmethod
     def supports(rs) -> bool:
-        """Config gate, as rs_pallas.py's: m = 8, nr <= 64 and
-        (fcr + nr) * prim < 2^15; and, past it, a primitive polynomial.
+        """Config gate, as rs_pallas.py's but for the field: m = 8 or 10,
+        nr <= 64 and (fcr + nr) * prim < 2^15; and, past it, a primitive
+        polynomial.
         The kernel's Chien steps logs (log el_j + j) and so needs a log
         table that names every nonzero element once; a polynomial whose
         powers of x miss elements (0x11B) runs the plain version, which
         the kernel disagreed with there (ROADMAP.md Queue 3, F8)."""
         return (
-            rs.m == 8
+            rs.m in (8, WIDE_M)
             and rs.num_roots <= MAX_ROOTS
             and (rs.fcr + rs.num_roots) * rs.prim < (1 << 15)
             and rs.gf.primitive
@@ -244,17 +292,22 @@ class RSCudaDecoder:
 
     def __init__(self, tables: np.ndarray, nr: int, k: int, fcr: int, prim: int,
                  prim_inv: int, device):
-        """tables: the code's `gf_tables`; nr roots, k = 255 - nr data
-        symbols at most, fcr, prim and prim_inv as models/rs.py RSCodec
-        has them; device: the card the kernels run on."""
+        """tables: the code's `gf_tables` [4, 2^m], m = 8 or WIDE_M; nr
+        roots, k = 2^m - 1 - nr data symbols at most, fcr, prim and
+        prim_inv as models/rs.py RSCodec has them; device: the card the
+        kernels run on."""
         self.nr, self.k, self.fcr, self.prim, self.prim_inv = nr, k, fcr, prim, prim_inv
         self.launches = 0
         self.syndrome_launches = 0
         self.stripe_launches = 0
         self._host_tables = np.asarray(tables, dtype=np.int32)
-        self.tables = torch.from_numpy(self._host_tables).to(device)   # [4, 256] int32
-        # int32 [F, FACTOR_ENTRIES, 4] (syndrome_tables)
-        self.syndrome_tables = torch.from_numpy(syndrome_tables(
+        self.m = self._host_tables.shape[1].bit_length() - 1
+        self.dtype = symbol_dtype(self.m)                            # a symbol in memory
+        self.tables = torch.from_numpy(self._host_tables).to(device)   # [4, 2^m] int32
+        make = syndrome_tables if self.m == 8 else wide_syndrome_tables
+        # the syndrome kernel's tables: int32 [F, FACTOR_ENTRIES, 4] (syndrome_tables)
+        # or the wide kernel's bytes (wide_syndrome_tables)
+        self.syndrome_tables = torch.from_numpy(make(
             self._host_tables[0], self._host_tables[1], nr, fcr, prim).view(np.int32)).to(device)
         self._plans = LruCache(capacity=16)   # (n, lost) -> StripePlan, arrays on the card
         self._work = {}                       # (card, stream) -> the stripe kernel's ticket
@@ -263,8 +316,8 @@ class RSCudaDecoder:
         self._decode_shapes = {}              # (card, erasure) -> the decode kernel's launch shape
 
     def supports_erasure(self, E: int) -> bool:
-        """Erasure lists 1..nr wide ride the kernel."""
-        return 0 < E <= self.nr
+        """Erasure lists 1..nr wide ride the kernel, at m = 8."""
+        return self.m == 8 and 0 < E <= self.nr
 
     def syndromes(self, data, parity):
         """Log-form syndromes int32 [B, nr] (fs where S_i = 0) of the rows
@@ -288,6 +341,8 @@ class RSCudaDecoder:
         models/rs.py `RSCodec._reconstruct` gives them, in one launch of
         the stripe kernel."""
         with span("poporon.launch.rs_stripe"):
+            if self.m != 8:
+                raise ValueError(f"the stripe kernel takes bytes, not {self.m}-bit symbols")
             dev = self._card(cells)
             n, L = cells.shape
             cells = checked(cells, torch.uint8, (n, L), dev)
@@ -370,13 +425,13 @@ class RSCudaDecoder:
 
     def _rows(self, data, parity):
         """data and parity checked for the kernels: CUDA tensors on the
-        launcher's card, uint8, contiguous."""
+        launcher's card, of its symbol dtype, contiguous."""
         dev = self._card(data)
         B, size = data.shape
         if not 0 < size <= self.k:
             raise ValueError(f"size {size} outside 1..{self.k}")
-        return (checked(data, torch.uint8, (B, size), dev),
-                checked(parity, torch.uint8, (B, self.nr), dev))
+        return (checked(data, self.dtype, (B, size), dev),
+                checked(parity, self.dtype, (B, self.nr), dev))
 
     def _syndrome_shape(self, dev):
         """The syndrome kernel's launch on `dev`: (blocks the card holds at
@@ -386,7 +441,7 @@ class RSCudaDecoder:
         card = dev.index or 0
         if card not in self._syndrome_shapes:
             copies, smem = ctypes.c_int(0), ctypes.c_int(0)
-            per_sm = build.occupancy("pp_rs_syndrome_shape", dev, self.nr, card,
+            per_sm = build.occupancy("pp_rs_syndrome_shape", dev, self.m, self.nr, card,
                                      ctypes.addressof(copies), ctypes.addressof(smem))
             if per_sm == 0:
                 raise RuntimeError(f"rs_syndrome kernel: no block fits an SM at "
@@ -403,8 +458,8 @@ class RSCudaDecoder:
         key = (dev.index or 0, erasure)
         if key not in self._decode_shapes:
             smem, carveout = ctypes.c_int(0), ctypes.c_int(0)
-            per_sm = build.occupancy("pp_rs_decode_shape", dev, int(erasure), self.nr, key[0],
-                                     ctypes.addressof(smem), ctypes.addressof(carveout))
+            per_sm = build.occupancy("pp_rs_decode_shape", dev, self.m, int(erasure), self.nr,
+                                     key[0], ctypes.addressof(smem), ctypes.addressof(carveout))
             if per_sm == 0:
                 raise RuntimeError(f"rs_decode kernel: no block fits an SM at "
                                    f"{smem.value} B of shared memory")
@@ -420,7 +475,8 @@ class RSCudaDecoder:
                 return s_log
             blocks, copies, smem = self._syndrome_shape(dev)
             grid = min(blocks, -(-B // SYNDROME_TILE))
-            build.launch("pp_rs_syndrome", dev, data, parity, self.syndrome_tables, self.tables,
+            build.launch("pp_rs_syndrome", dev, self.m, data, parity, self.syndrome_tables,
+                         self.tables,
                          s_log, B, size, self.nr, copies, grid, smem)
         self.launches += 1
         self.syndrome_launches += 1
@@ -454,8 +510,9 @@ class RSCudaDecoder:
             if B == 0:
                 return ok, data_out, parity_out, corrected
             self.decode_shape(dev, mode == MODE_ERASURE)
-            build.launch("pp_rs_decode", dev, int(mode == MODE_ERASURE), data, parity, eras_pos,
-                         eras_count, eras_width, s_log, self.tables, data_out, parity_out, ok,
-                         corrected, B, size, nr, self.fcr, self.prim, self.prim_inv)
+            build.launch("pp_rs_decode", dev, self.m, int(mode == MODE_ERASURE), data, parity,
+                         eras_pos, eras_count, eras_width, s_log, self.tables, data_out,
+                         parity_out, ok, corrected, B, size, nr, self.fcr, self.prim,
+                         self.prim_inv)
             self.launches += 1
             return ok, data_out, parity_out, corrected

@@ -9,7 +9,7 @@ wrap back to 1).
 Two representations feed the device code:
 
 1. **log-domain tables** (`log2exp` / `exp2log`) for index lookups
-   (ops/gfint.py, csrc/gf8.cuh);
+   (ops/gfint.py, csrc/gf.cuh);
 2. **bit-linear matrices**: multiplication by a *constant* c in GF(2^m)
    is a GF(2)-linear map on the m bits of the operand, so whole
    encode/syndrome/Chien evaluations become 0/1 matrices applied with a
@@ -117,19 +117,21 @@ class GF:
         C = np.asarray(constants)
         I, O = C.shape
         m = self.symbol_size
-        M = np.zeros((I * m, O * m), dtype=np.uint8)
-        cache: dict[int, np.ndarray] = {}
-        for i in range(I):
-            for o in range(O):
-                c = int(C[i, o])
-                if c == 0:
-                    continue
-                blk = cache.get(c)
-                if blk is None:
-                    blk = self.mul_matrix(c)
-                    cache[c] = blk
-                M[i * m : (i + 1) * m, o * m : (o + 1) * m] = blk
-        return M
+        blocks = self._mul_matrices()[C.astype(np.int64)]          # [I, O, m, m]
+        return blocks.transpose(0, 2, 1, 3).reshape(I * m, O * m)
+
+    def _mul_matrices(self) -> np.ndarray:
+        """mul_matrix(c) for every c in [0, field_size], [fs + 1, m, m]
+        (zeros at c = 0): the same table products, built at once."""
+        if getattr(self, "_mul_mats", None) is None:
+            m, fs = self.symbol_size, self.field_size
+            c = np.arange(fs + 1, dtype=np.int64)[:, None]
+            basis = (1 << np.arange(m - 1, -1, -1, dtype=np.int64))[None, :]
+            log = self.exp2log.astype(np.int64)
+            prod = np.where(c == 0, 0, self.log2exp.astype(np.int64)[(log[c] + log[basis]) % fs])
+            shifts = np.arange(m - 1, -1, -1, dtype=np.int64)
+            self._mul_mats = ((prod[:, :, None] >> shifts) & 1).astype(np.uint8)
+        return self._mul_mats
 
     def linear_matrix_bits_in(self, constants: np.ndarray) -> np.ndarray:
         """Like linear_matrix, but each INPUT is a single GF(2) bit.

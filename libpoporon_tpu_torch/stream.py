@@ -15,12 +15,16 @@ the blobs are byte-equal to the JAX package's for the same codec.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 _HEADER = 8  # uint64 little-endian payload length
 
 
 class StreamCodec:
     def __init__(self, codec):
+        if codec.symbol_dtype != torch.uint8:
+            raise ValueError(f"StreamCodec frames bytes; this codec's symbols are "
+                             f"{codec.config.symbol_size} bits")
         self.codec = codec
         self.info_size = int(codec.info_size)
         self.parity_size = int(codec.parity_size)

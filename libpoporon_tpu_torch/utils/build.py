@@ -39,20 +39,20 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # name -> argtypes of every C entry point; each returns a cudaError_t
 SIGNATURES = {
-    # data, parity, tables, log_tables, s_log_out, batch, size, nr, copies,
-    # grid, smem, device, stream
-    "pp_rs_syndrome": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # nr, device, copies out, smem out (returns blocks per SM, or a
+    # m (the field's bits: 8 or 10), data, parity, tables, log_tables,
+    # s_log_out, batch, size, nr, copies, grid, smem, device, stream
+    "pp_rs_syndrome": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # m, nr, device, copies out, smem out (returns blocks per SM, or a
     # negative cudaError_t)
-    "pp_rs_syndrome_shape": [_I, _I, _P, _P],
-    # erasure, data, parity, eras_pos, eras_cnt, eras_width, s_log, tables,
-    # data_out, parity_out, ok_out, corrected_out,
+    "pp_rs_syndrome_shape": [_I, _I, _I, _P, _P],
+    # m, erasure, data, parity, eras_pos, eras_cnt, eras_width, s_log,
+    # tables, data_out, parity_out, ok_out, corrected_out,
     # batch, size, nr, fcr, prim, prim_inv, device, stream
-    "pp_rs_decode": [_I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
+    "pp_rs_decode": [_I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
                      _I, _I, _I, _I, _I, _I, _I, _P],
-    # erasure, nr, device, smem out, carveout out (returns blocks per SM,
-    # or a negative cudaError_t)
-    "pp_rs_decode_shape": [_I, _I, _I, _P, _P],
+    # m, erasure, nr, device, smem out, carveout out (returns blocks per
+    # SM, or a negative cudaError_t)
+    "pp_rs_decode_shape": [_I, _I, _I, _I, _P, _P],
     # cells, lost, surv, nibbles, tables, rebuilt, ok_out, corrected_out,
     # failed_out, work, grid, smem, L, n, e, nr, fcr, prim, prim_inv, fast,
     # tmask, vec, device, stream

@@ -66,7 +66,7 @@ def _codecs(name):
 
 
 class KernelGF:
-    """gf8::Tables on the kernel's [4, 256] tables (log, antilog, sec, inv)."""
+    """galois::Tables<8> on the kernel's [4, 256] tables (log, antilog, sec, inv)."""
 
     def __init__(self, tables: np.ndarray):
         self.log, self.antilog, _, self.inv = (list(map(int, t)) for t in tables)
