@@ -91,7 +91,10 @@ kernels (their launches counted) against the plain version on the card,
 on the benchmark cell `rs544.ber2p4e-4.dev`'s mix (bits flipped at
 2.4e-4) and on rows of exactly t = 15 and t + 1 errors, then timed; and
 the gate's other m = 10 shapes (nr = 14, 16, 33 and 64, prim 2 and 7,
-fcr 1 and 5) on a thousand rows each against the plain version.
+fcr 1 and 5) on a thousand rows each against the plain version, with the
+syndrome kernel's launch shape and ptxas figures at each F; and the
+syndrome kernel's two lane layouts of its half tables timed in turns,
+the other one from a copy of its source built apart.
 `python3 chip_smoke.py --wide-only` builds the kernels and runs phase 16
 alone.
 """
@@ -1217,12 +1220,14 @@ WIDE_SHAPES = (((10, 0x409, 0, 1, 14), 514),     # RS(528,514) "KR4", Clause 91'
 WIDE_SHAPE_ROWS = 1001                           # ragged against every block of rows
 
 
-def wide_shapes(pt, dev) -> list[dict]:
+def wide_shapes(pt, dev, forms) -> list[dict]:
     """The m = 10 kernels at the gate's other shapes (WIDE_SHAPES), each
     on B = WIDE_SHAPE_ROWS rows with 0 to t + 2 errors, in full and from
     row 1: each decode launches both kernels (the counts move by 2 and
     1) and equals the plain version, the syndrome kernel equals its plain
-    version, and every row of at most t errors is recovered."""
+    version, and every row of at most t errors is recovered.  Each entry
+    carries the syndrome kernel's launch shape (blocks the card holds,
+    lane copies, dynamic shared bytes) and ptxas figures at its F."""
     import torch
     out = []
     for cfg, size in WIDE_SHAPES:
@@ -1252,8 +1257,55 @@ def wide_shapes(pt, dev) -> list[dict]:
         check(bool(got.ok[within[1:]].all()) and torch.equal(got.data[within[1:]], info[1:][within[1:]]),
               f"wide {cfg}: rows of at most t errors not recovered")
         out.append({"config": cfg, "size": size, "rows": WIDE_SHAPE_ROWS,
-                    "ok_share": float(got.ok.float().mean())})
+                    "ok_share": float(got.ok.float().mean()),
+                    "syndrome_shape": kern._syndrome_shape(dev),
+                    **forms.get(f"rs_syndrome_wide_kernel<{-(-nr // 16)}>", {})})
     return out
+
+
+# rs_syndrome_wide_kernel<2>'s figures where T was one [F][2][1024] table of
+# 16-byte halves with no lane copies (about 37 conflicted wavefronts a warp
+# and symbol): ptxas registers, dynamic shared bytes, blocks an SM
+WIDE_SYNDROME_BEFORE = {"registers": 80, "dynamic_smem": 74688, "blocks_per_sm": 2}
+WIDE_LOAD_WORDS = re.compile(r"^constexpr int kWideLoadWords = (\d+);", re.M)
+
+
+def wide_layouts(kern, dev, d, p, want, common) -> None:
+    """The wide syndrome kernel's two lane layouts of its half tables timed
+    in turns on the rows d | p (kept, other, other, kept): the kept one,
+    the package's, a copy a lane with 32-bit loads (kWideLoadWords 1) or
+    a copy a lane pair with 64-bit loads (2); the other one from a copy
+    of csrc/rs_decode.cu with that constant changed, built apart and
+    checked equal to `want` first."""
+    import torch
+    from libpoporon_tpu_torch.benchmarks.rs_kernel import library_copy
+    from libpoporon_tpu_torch.utils import build
+    from libpoporon_tpu_torch.utils.profiling import time_ms
+
+    src = (build.CSRC_DIR / "rs_decode.cu").read_text()
+    found = WIDE_LOAD_WORDS.findall(src)
+    check(len(found) == 1, f"kWideLoadWords defined {len(found)} times")
+    kept = int(found[0])
+    other = 3 - kept
+    lib, lines = library_copy(WIDE_LOAD_WORDS.sub(f"constexpr int kWideLoadWords = {other};", src),
+                              f"wide_load_words_{other}")
+    own = build.load_library
+    shapes, runs = {kept: kern._syndrome_shape(dev)}, {kept: [time_ms(kern.syndromes, d, p)]}
+    try:
+        build.load_library = lambda: lib          # the launcher now runs the copy's kernel
+        kern._syndrome_shapes.clear()
+        shapes[other] = kern._syndrome_shape(dev)
+        check(torch.equal(kern.syndromes(d, p), want),
+              f"wide syndromes at kWideLoadWords {other} != plain version")
+        runs[other] = [time_ms(kern.syndromes, d, p), time_ms(kern.syndromes, d, p)]
+    finally:
+        build.load_library = own
+        kern._syndrome_shapes.clear()
+    runs[kept].append(time_ms(kern.syndromes, d, p))
+    other_forms = ptxas_report(lines)
+    out = {str(w): {"ms": runs[w], "shape": shapes[w]} for w in (kept, other)}
+    out[str(other)].update(other_forms.get("rs_syndrome_wide_kernel<2>", {}))
+    log({"bench": "rs544_syndrome_layouts", "kept_load_words": kept, "layouts": out, **common})
 
 
 def wide_phase(pt, dev, forms, common) -> list[dict]:
@@ -1266,8 +1318,9 @@ def wide_phase(pt, dev, forms, common) -> list[dict]:
     exactly t = 15 errors (all recovered) and t + 1 (rows fail), at B - 1
     and from row 1 (rows 4-byte aligned); the gate's other shapes on a
     thousand rows each (`wide_shapes`); then the kernels, the facade and
-    the plain version timed.  Returns the two kernels' entries of the
-    kernels line."""
+    the plain version timed, and the syndrome kernel's two lane layouts
+    (`wide_layouts`).  Returns the two kernels' entries of the kernels
+    line."""
     import torch
     from libpoporon_tpu_torch.benchmarks.rs_kernel import time_in_turns
     from libpoporon_tpu_torch.models.rs import _encode_np
@@ -1333,7 +1386,7 @@ def wide_phase(pt, dev, forms, common) -> list[dict]:
                      "mean_corrected": float(got.corrected.float().mean())}
     log({"phase": "wide", "config": repr(codec.config), "codec_build_s": build_s,
          "cases": out, "kernel_vs_plain": "equal", "launches_per_decode": 2, **common})
-    log({"phase": "wide_shapes", "cases": wide_shapes(pt, dev), "kernel_vs_plain": "equal",
+    log({"phase": "wide_shapes", "cases": wide_shapes(pt, dev, forms), "kernel_vs_plain": "equal",
          "launches_per_decode": 2})
 
     # timing on the cell's mix
@@ -1360,10 +1413,12 @@ def wide_phase(pt, dev, forms, common) -> list[dict]:
     log({"bench": "rs544_facade", "ms": t_fac, "codewords_per_s": BATCH / t_fac * 1e3,
          "payload_MB_per_s": BATCH * size * 10 / 8 / t_fac / 1e3,
          "plain_ms": plain_ms, **common})
+    wide_layouts(kern, dev, d, p, s_log, common)
     log({"phase": "wide_shape", "decode": {"shape": kern.decode_shape(dev, False),
                                            **forms.get("rs_decode_kernel<10,false>", {})},
          "syndrome": {"shape": kern._syndrome_shape(dev),
-                      **forms.get("rs_syndrome_wide_kernel<2>", {})}})
+                      **forms.get("rs_syndrome_wide_kernel<2>", {})},
+         "syndrome_before": WIDE_SYNDROME_BEFORE})
     del cases, w, d, p, want
     return [{"name": "rs544_syndrome", "route": "cuda",
              "source": "libpoporon_tpu_torch/csrc/rs_decode.cu", "replaces": None,

@@ -229,26 +229,36 @@ def instrument(src: str) -> str:
     return src
 
 
-def instrumented_library() -> ctypes.CDLL:
-    """Builds the instrumented copy of csrc/rs_decode.cu alone into
-    build/breakdown/ and loads it with the package's argtypes."""
-    out = build.BUILD_DIR / "breakdown"
+def library_copy(src: str, stem: str) -> tuple[ctypes.CDLL, list[str]]:
+    """Builds `src`, an edited copy of csrc/rs_decode.cu, alone into
+    build/<stem>/ and loads it with the package's argtypes: (the library,
+    nvcc's register, spill and entry lines)."""
+    out = build.BUILD_DIR / stem
     out.mkdir(parents=True, exist_ok=True)
-    cu = out / "rs_decode_stamped.cu"
-    cu.write_text(instrument((build.CSRC_DIR / "rs_decode.cu").read_text()))
-    so = out / "librs_decode_stamped.so"
+    cu = out / f"rs_decode_{stem}.cu"
+    cu.write_text(src)
+    so = out / f"librs_decode_{stem}.so"
     cmd = [build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC_DIR), "-shared",
            "-o", str(so), str(cu)]
     p = subprocess.run(cmd, capture_output=True, text=True)
     if p.returncode != 0:
         raise RuntimeError(f"nvcc failed:\n{p.stdout}{p.stderr}")
-    log({"breakdown_build": [ln.strip() for ln in (p.stdout + p.stderr).splitlines()
-                             if "registers" in ln or "spill" in ln or "Compiling" in ln]})
+    lines = [ln.strip() for ln in (p.stdout + p.stderr).splitlines()
+             if "registers" in ln or "spill" in ln or "Compiling" in ln]
     lib = ctypes.CDLL(str(so))
     for name, argtypes in build.SIGNATURES.items():
         if hasattr(lib, name):
             getattr(lib, name).argtypes = argtypes
             getattr(lib, name).restype = ctypes.c_int
+    return lib, lines
+
+
+def instrumented_library() -> ctypes.CDLL:
+    """Builds the instrumented copy of csrc/rs_decode.cu alone into
+    build/breakdown/ and loads it with the package's argtypes."""
+    lib, lines = library_copy(instrument((build.CSRC_DIR / "rs_decode.cu").read_text()),
+                              "breakdown")
+    log({"breakdown_build": lines})
     lib.pp_rs_stamps.argtypes = [ctypes.c_void_p]
     return lib
 

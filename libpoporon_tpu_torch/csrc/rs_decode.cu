@@ -942,25 +942,39 @@ inline const void* syndrome_kernel(int nr) {
 // The syndromes of rows of 16-bit symbols (m = 10, models/rs_cuda.py
 // `WIDE_M`), the byte kernel's division by the factors of g(x) with a
 // ten-bit step: factor f divides by h_f(x) = x^(16 - r_f) g_f(x), monic of
-// degree 16, keeping the remainder's 16 coefficients a 16-bit half-word
-// each in eight registers; a step takes the top coefficient, shifts the
-// words up a half-word with the symbol entering at the bottom (eight byte
-// permutes) and XORs in T_f[top], 32 bytes, two 16-byte loads from
-// [F][2][1024] halves (the low and the high 8 coefficients, so that an
-// entry's two loads fall in all eight 16-byte bank groups).  The tail
-// evaluates each remainder at its factor's roots on log tables: S_i =
-// XOR_b antilog[log R_b + va_i b], an antilog table thrice over whose
-// last third is zero and the log of zero 2 fs, so that no term branches.
-// What bounds it: shared-memory bandwidth.  T is 32 KB a factor (65 KB at
-// nr = 30), so there is no room for the byte kernel's lane copies, and a
-// warp's 16-byte loads of random entries take about 2.3 times the
-// wavefronts of conflict-free ones: about 37 wavefronts a warp and symbol
-// at nr = 30, where the byte kernel at nr = 32 takes 8.  Each thread reads
-// its own row from device memory, 16 bytes at a time where aligned; the
-// L1 holds a warp's 32 rows' lines while it divides them, which is why a
-// block asks for two blocks an SM, not three: the launcher sets the
+// degree 16, keeping the remainder's 16 coefficients packed ten bits each,
+// coefficient c at bits 10 c .. 10 c + 9 of five registers.  A step takes
+// the top coefficient (bits 150..159), shifts the five words up ten bits
+// by funnel shifts with the symbol entering at the bottom, and XORs in
+// T_f[top] = top (h_f - x^16).  T_f is GF(2)-linear in top, so for top =
+// 32 a + b it is A_f[a] ^ B_f[b], A_f[a] = T_f[32 a] and B_f[b] = T_f[b]:
+// two half tables of 32 entries of five words, small enough for a copy a
+// lane.  Word q of entry e of lane l's copy of a half lies at word (32 q
+// + e) 32 + l, so lane l reads bank l whatever the entries: ten 32-bit
+// loads a factor step, one wavefront each, 20 a warp and symbol at nr =
+// 30, where one 1,024-entry T of 32-byte entries, too large for lane
+// copies, took about 37 conflicted ones; and five 3-input XORs where
+// there were eight.  (`kWideLoadWords` = 2 is the other layout: lanes l
+// and l + 16 share a copy, entries padded to six words, three 64-bit
+// loads a half, conflict-free within each half-warp: 24 wavefronts and
+// half the shared memory; chip_smoke.py phase 16 times the two.)  Each
+// block builds its lane copies, 40 KB a factor, from the host's compact
+// half tables ([F][2][32][5] words, `wide_syndrome_tables`) before its
+// first row.  The tail evaluates each remainder at its factor's roots on
+// log tables: S_i = XOR_b antilog[log R_b + va_i b], an antilog table
+// thrice over whose last third is zero and the log of zero 2 fs, so that
+// no term branches.  What bounds it: shared-memory wavefronts, 20 a warp
+// and symbol for T; then the step's integer issue, about 16 cycles a warp
+// and symbol an SM; then the rows' 16-byte loads and the tail.  At B =
+// 131072 KP4 rows (nr = 30; H100 80GB HBM3, 700 W): 0.284 ms, about 33
+// cycles a warp and symbol an SM at 1.98 GHz, where the 1,024-entry T
+// took 0.47 ms (49 cycles); the 64-bit layout 0.31-0.32 ms.  Each
+// thread reads its own row from device memory, 16 bytes at a time where
+// aligned; the L1 holds a warp's 32 rows' lines while it divides them, so
+// a block asks for two blocks an SM, not three: the launcher sets the
 // carveout to the least that holds two (`pp_rs_syndrome_shape`), and the
-// rest of the SM's 256 KB, about 90 KB, is L1.  Persistent blocks, one
+// rest of the SM's 256 KB is L1.  Where two do not fit (F = 3 and 4,
+// nr > 32), the occupancy calculator gives one.  Persistent blocks, one
 // thread a row, rows a grid apart.
 
 constexpr int kWideM = 10;
@@ -968,42 +982,71 @@ constexpr int kWideFs = Field<kWideM>::kFs;
 constexpr int kWideTable = Field<kWideM>::kTable;
 constexpr int kWideSynThreads = 256;   // threads a block of the wide syndrome kernel
 constexpr int kWideSynBlocks = 2;      // blocks an SM it asks for
+constexpr int kWideWords = 5;          // words of a packed remainder or table entry: 16 x 10 bits
+constexpr int kWideEntries = 32;       // entries of a half table: a 5-bit half of the top
+constexpr int kWideLoadWords = 1;      // words a lane's table load: 1, a copy a lane; 2, a copy a lane pair
+constexpr int kWideLoads = (kWideWords + kWideLoadWords - 1) / kWideLoadWords;  // loads an entry
+constexpr int kWideCopies = 32 / kWideLoadWords;                  // lane copies of a half table
+constexpr int kWideEntryWords = kWideCopies * kWideLoadWords;     // 32: entry e's loads at 32 e
+constexpr int kWideLoadStride = kWideEntries * kWideEntryWords;   // 1,024: load l's at 1,024 l
+constexpr int kWideHalfWords = kWideLoads * kWideLoadStride;      // a half table's copies
 
 struct WideSynParams {
   const uint16_t* data;    // [B, size]
   const uint16_t* parity;  // [B, nr]
-  const uint4* tables;     // models/rs_cuda.py syndrome_tables at m = 10, as laid out in shared memory
+  const uint32_t* tables;  // models/rs_cuda.py wide_syndrome_tables
   int32_t* s_log_out;      // [B, nr]
   int batch, size, nr;
 };
 
-// The wide kernel's dynamic shared bytes, its tables as the host lays them
-// out: T [F][2][2^m] 16-byte halves, the antilog table thrice over and the
-// log table (uint16 each, the log of zero 2 fs), and va_i b mod fs [nr][16]
-// (uint16).
-__host__ __device__ constexpr int wide_syndrome_smem(int factors, int nr) {
-  return factors * 2 * kWideTable * 16 + 4 * kWideTable * 2 + nr * kFactorRoots * 2;
+// The host's tables: the compact half tables [F][2][32][5] words, then the
+// antilog table thrice over and the log table (uint16 each, the log of
+// zero 2 fs), and va_i b mod fs [nr][16] (uint16), the tail's.
+__host__ __device__ constexpr int wide_half_bytes(int factors) {
+  return factors * 2 * kWideEntries * kWideWords * 4;
+}
+__host__ __device__ constexpr int wide_tail_bytes(int nr) {
+  return 4 * kWideTable * 2 + nr * kFactorRoots * 2;
 }
 
-// One step of every factor's division: R = x R + v - top h_f.
+// The wide kernel's dynamic shared bytes: the half tables' lane copies
+// [F][2][kWideLoads][32 entries][kWideCopies][kWideLoadWords] words, then
+// the tail's tables as the host lays them out.
+__host__ __device__ constexpr int wide_syndrome_smem(int factors, int nr) {
+  return factors * 2 * kWideHalfWords * 4 + wide_tail_bytes(nr);
+}
+
+// The five words of a half table's entry from the lane's copy at `at`.
+__device__ __forceinline__ void wide_entry(const uint32_t* at,
+                                           uint32_t (&w)[kWideLoads * kWideLoadWords]) {
+#pragma unroll
+  for (int l = 0; l < kWideLoads; ++l) {
+    if constexpr (kWideLoadWords == 1) {
+      w[l] = at[l * kWideLoadStride];
+    } else {
+      const uint2 u = *reinterpret_cast<const uint2*>(at + l * kWideLoadStride);
+      w[2 * l] = u.x;
+      w[2 * l + 1] = u.y;
+    }
+  }
+}
+
+// One step of every factor's division: R = x R + v - top h_f.  t is the
+// lane's copy of the half tables.
 template <int F>
-__device__ __forceinline__ void divide_step_wide(uint32_t (&R)[F][8], const uint4* t, uint32_t v) {
+__device__ __forceinline__ void divide_step_wide(uint32_t (&R)[F][kWideWords], const uint32_t* t,
+                                                 uint32_t v) {
 #pragma unroll
   for (int f = 0; f < F; ++f) {
-    const uint32_t top = R[f][7] >> 16;
+    const uint32_t top = R[f][kWideWords - 1] >> (32 - kWideM);  // bits 150..159
 #pragma unroll
-    for (int q = 7; q > 0; --q) R[f][q] = __byte_perm(R[f][q - 1], R[f][q], 0x5432);
-    R[f][0] = __byte_perm(v, R[f][0], 0x5410);
-    const uint4 lo = t[2 * f * kWideTable + (int)top];
-    const uint4 hi = t[(2 * f + 1) * kWideTable + (int)top];
-    R[f][0] ^= lo.x;
-    R[f][1] ^= lo.y;
-    R[f][2] ^= lo.z;
-    R[f][3] ^= lo.w;
-    R[f][4] ^= hi.x;
-    R[f][5] ^= hi.y;
-    R[f][6] ^= hi.z;
-    R[f][7] ^= hi.w;
+    for (int q = kWideWords - 1; q > 0; --q) R[f][q] = __funnelshift_l(R[f][q - 1], R[f][q], kWideM);
+    R[f][0] = R[f][0] << kWideM | v;
+    uint32_t a[kWideLoads * kWideLoadWords], b[kWideLoads * kWideLoadWords];
+    wide_entry(t + 2 * f * kWideHalfWords + (int)(top >> 5) * kWideEntryWords, a);
+    wide_entry(t + (2 * f + 1) * kWideHalfWords + (int)(top & 31) * kWideEntryWords, b);
+#pragma unroll
+    for (int q = 0; q < kWideWords; ++q) R[f][q] ^= a[q] ^ b[q];
   }
 }
 
@@ -1012,7 +1055,7 @@ __device__ __forceinline__ void divide_step_wide(uint32_t (&R)[F][8], const uint
 // 16 bytes a load from src's first 16-byte boundary, the symbols before it
 // and after the last whole 16 bytes one at a time.
 template <int F>
-__device__ __forceinline__ void divide_row_wide(uint32_t (&R)[F][8], const uint4* t,
+__device__ __forceinline__ void divide_row_wide(uint32_t (&R)[F][kWideWords], const uint32_t* t,
                                                 const uint16_t* src, int len) {
   int j = 0;
   for (; j < len && (reinterpret_cast<uintptr_t>(src + j) & 15); ++j)
@@ -1030,33 +1073,51 @@ __device__ __forceinline__ void divide_row_wide(uint32_t (&R)[F][8], const uint4
   for (; j < len; ++j) divide_step_wide<F>(R, t, src[j] & kWideFs);
 }
 
+// Coefficient b of a packed remainder: bits 10 b .. 10 b + 9.
+__device__ __forceinline__ uint32_t wide_coef(const uint32_t (&r)[kWideWords], int b) {
+  const int q = kWideM * b / 32, sh = kWideM * b % 32;
+  const uint32_t x = sh + kWideM <= 32 ? r[q] >> sh
+                                       : __funnelshift_r(r[q], r[q + 1 < kWideWords ? q + 1 : q], sh);
+  return x & kWideFs;
+}
+
 template <int F>
 __global__ void __launch_bounds__(kWideSynThreads, kWideSynBlocks)
     rs_syndrome_wide_kernel(const WideSynParams p) {
   extern __shared__ __align__(16) uint8_t smem[];
-  const uint4* s_t = reinterpret_cast<const uint4*>(smem);                          // [F][2][2^m]
-  const uint16_t* s_alog = reinterpret_cast<const uint16_t*>(smem + F * 2 * kWideTable * 16);  // [3][2^m]
-  const uint16_t* s_log = s_alog + 3 * kWideTable;                                  // [2^m]
-  const uint16_t* s_exp = s_log + kWideTable;                                       // [nr][16]
+  uint32_t* s_t = reinterpret_cast<uint32_t*>(smem);              // the half tables' copies
+  uint8_t* s_tail = smem + F * 2 * kWideHalfWords * 4;
+  const uint16_t* s_alog = reinterpret_cast<const uint16_t*>(s_tail);  // [3][2^m]
+  const uint16_t* s_log = s_alog + 3 * kWideTable;                     // [2^m]
+  const uint16_t* s_exp = s_log + kWideTable;                          // [nr][16]
 
   const int tid = threadIdx.x;
   const int nr = p.nr, size = p.size;
-  const int words = wide_syndrome_smem(F, nr) / 16;
-  for (int i = tid; i < words; i += kWideSynThreads)
-    reinterpret_cast<uint4*>(smem)[i] = p.tables[i];
+  // word w of copy c of entry e of half h (f's A, then its B) from the
+  // compact tables; a layout of two words a load pads entries to six
+  for (int i = tid; i < F * 2 * kWideHalfWords; i += kWideSynThreads) {
+    const int h = i / kWideHalfWords, r = i % kWideHalfWords;
+    const int e = r % kWideLoadStride / kWideEntryWords;
+    const int w = r / kWideLoadStride * kWideLoadWords + r % kWideLoadWords;
+    s_t[i] = w < kWideWords ? p.tables[(h * kWideEntries + e) * kWideWords + w] : 0u;
+  }
+  const uint4* tail = reinterpret_cast<const uint4*>(p.tables + wide_half_bytes(F) / 4);
+  for (int i = tid; i < wide_tail_bytes(nr) / 16; i += kWideSynThreads)
+    reinterpret_cast<uint4*>(s_tail)[i] = tail[i];
   __syncthreads();  // tables in
 
+  const uint32_t* t = s_t + tid % kWideCopies * kWideLoadWords;  // the lane's copy
   for (long long row = (long long)blockIdx.x * kWideSynThreads + tid; row < p.batch;
        row += (long long)gridDim.x * kWideSynThreads) {
-    uint32_t R[F][8] = {};
-    divide_row_wide<F>(R, s_t, p.data + row * size, size);
-    divide_row_wide<F>(R, s_t, p.parity + row * nr, nr);
+    uint32_t R[F][kWideWords] = {};
+    divide_row_wide<F>(R, t, p.data + row * size, size);
+    divide_row_wide<F>(R, t, p.parity + row * nr, nr);
     int32_t* out = p.s_log_out + row * nr;
 #pragma unroll
     for (int f = 0; f < F; ++f) {
       int lr[kFactorRoots];  // log R_b, 2 fs for zero
 #pragma unroll
-      for (int b = 0; b < kFactorRoots; ++b) lr[b] = s_log[(R[f][b >> 1] >> (16 * (b & 1))) & 0xFFFF];
+      for (int b = 0; b < kFactorRoots; ++b) lr[b] = s_log[wide_coef(R[f], b)];
       const int roots = nr - kFactorRoots * f < kFactorRoots ? nr - kFactorRoots * f : kFactorRoots;
       for (int j = 0; j < roots; ++j) {
         const uint16_t* ex = s_exp + (kFactorRoots * f + j) * kFactorRoots;
@@ -1412,7 +1473,8 @@ static cudaError_t carveout_for(const void* kern, int blocks, int smem, int devi
 // Sets the syndrome kernel of m-bit symbols (m = 8 or 10) up on `device`
 // for nr roots: writes its copies of T (m = 8: kCopies where they fit a
 // block's shared memory, so that the lanes' lookups of T fall in distinct
-// banks, else 1; m = 10: 1) to *copies and its dynamic shared bytes a
+// banks, else 1; m = 10: the lane copies each block builds of its half
+// tables, kWideCopies) to *copies and its dynamic shared bytes a
 // block to *smem, lets it use all the device's shared memory (m = 10: as
 // much of it as kWideSynBlocks blocks an SM need, the rest left to L1),
 // and returns how many of its blocks an SM holds; a negative cudaError_t
@@ -1434,7 +1496,7 @@ extern "C" int pp_rs_syndrome_shape(int m, int nr, int device, int* copies, int*
     *copies = syndrome_smem(factors, kCopies) <= max_smem ? kCopies : 1;
     *smem = syndrome_smem(factors, *copies);
   } else {
-    *copies = 1;
+    *copies = kWideCopies;
     *smem = wide_syndrome_smem(factors, nr);
     if ((err = carveout_for(kern, kWideSynBlocks, *smem, device, &pct)) != cudaSuccess)
       return -(int)err;
@@ -1453,8 +1515,9 @@ extern "C" int pp_rs_syndrome_shape(int m, int nr, int device, int* copies, int*
 // `stream` (a cudaStream_t) of `device`, in `grid` blocks of `smem` dynamic
 // shared bytes with `copies` copies of T (pp_rs_syndrome_shape first, for
 // all three); allocates nothing.  `tables` is models/rs_cuda.py
-// `syndrome_tables` for this config, `log_tables` the decode's [4, 256]
-// (log first; m = 8 only).  Returns the launch's cudaError_t.
+// `syndrome_tables` for this config (m = 10: `wide_syndrome_tables`),
+// `log_tables` the decode's [4, 256] (log first; m = 8 only).  Returns the
+// launch's cudaError_t.
 extern "C" int pp_rs_syndrome(int m, const void* data, const void* parity, const void* tables,
                               const void* log_tables, void* s_log_out, int batch, int size,
                               int nr, int copies, int grid, int smem, int device, void* stream) {
@@ -1472,7 +1535,7 @@ extern "C" int pp_rs_syndrome(int m, const void* data, const void* parity, const
   if (m == kWideM) {
     const WideSynParams w = {static_cast<const uint16_t*>(data),
                              static_cast<const uint16_t*>(parity),
-                             static_cast<const uint4*>(tables),
+                             static_cast<const uint32_t*>(tables),
                              static_cast<int32_t*>(s_log_out), batch, size, nr};
     switch (factors) {
       case 1: rs_syndrome_wide_kernel<1><<<grid, kWideSynThreads, smem, st>>>(w); break;

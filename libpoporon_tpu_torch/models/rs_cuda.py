@@ -216,18 +216,24 @@ def syndrome_tables(exp2log, log2exp, nr: int, fcr: int, prim: int) -> np.ndarra
 
 def wide_syndrome_tables(exp2log, log2exp, nr: int, fcr: int, prim: int) -> np.ndarray:
     """The wide syndrome kernel's tables (m = 10) from the field's log and
-    antilog tables, as bytes laid out as the kernel holds them in shared
-    memory (rs_decode.cu `wide_syndrome_smem`), all uint16: T [F, 2, 1024,
-    8], F = ceil(nr / 16), half h of entry v of factor f the coefficients
-    8 h .. 8 h + 7 of T_f[v] = v (h_f(x) - x^16), h_f as in
-    `syndrome_tables`; the antilog table thrice over [3 * 1024], the last
-    third zero; the log table [1024] with the log of zero 2 fs, so that a
-    zero coefficient's terms land in that third; and va_i b mod fs [nr,
-    16], va_i = (fcr + i) prim mod fs.  The tail's S_i is then the XOR
-    over b of antilog[log R_b + va_i b]."""
+    antilog tables, as bytes in the order the kernel reads them
+    (rs_decode.cu `rs_syndrome_wide_kernel`).  First the half tables,
+    uint32 [F, 2, 32, 5], F = ceil(nr / 16): with T_f[v] = v (h_f(x) -
+    x^16), h_f as in `syndrome_tables`, entry e of half 0 is A_f[e] =
+    T_f[32 e] and of half 1 B_f[e] = T_f[e], so that T_f[32 a + b] =
+    A_f[a] ^ B_f[b] (T_f is GF(2)-linear in v); each entry the 16
+    coefficients packed ten bits each, coefficient c at bits 10 c .. 10 c
+    + 9 of its five words (word 0 the lowest).  The kernel's blocks expand
+    them into lane copies in shared memory.  Then, uint16: the antilog
+    table thrice over [3 * 1024], the last third zero; the log table
+    [1024] with the log of zero 2 fs, so that a zero coefficient's terms
+    land in that third; and va_i b mod fs [nr, 16], va_i = (fcr + i) prim
+    mod fs.  The tail's S_i is then the XOR over b of antilog[log R_b +
+    va_i b]."""
     log = np.asarray(exp2log, dtype=np.int64)
     alog = np.asarray(log2exp, dtype=np.int64)
     fs = len(alog) - 1
+    m = fs.bit_length()
 
     def mul(a, b):
         a, b = np.broadcast_arrays(np.asarray(a, np.int64), np.asarray(b, np.int64))
@@ -235,22 +241,28 @@ def wide_syndrome_tables(exp2log, log2exp, nr: int, fcr: int, prim: int) -> np.n
 
     va = np.array([((fcr + i) * prim) % fs for i in range(nr)], dtype=np.int64)
     factors = -(-nr // FACTOR_ROOTS)
-    t = np.zeros((factors, fs + 1, FACTOR_ROOTS), dtype=np.uint16)
+    tops = np.stack([32 * np.arange(32), np.arange(32)])             # the halves' tops
+    coef = np.zeros((factors, 2, 32, FACTOR_ROOTS), dtype=np.int64)
     for f in range(factors):
         h = np.zeros(FACTOR_ROOTS + 1, dtype=np.int64)     # ascending powers of x
         roots = va[FACTOR_ROOTS * f:FACTOR_ROOTS * (f + 1)]
         h[FACTOR_ROOTS - len(roots)] = 1
         for e in roots:                                     # h *= x + b_i
             h = np.concatenate([[0], h[:-1]]) ^ mul(h, alog[e])
-        t[f] = mul(np.arange(fs + 1)[:, None], h[None, :FACTOR_ROOTS])
-    halves = t.reshape(factors, fs + 1, 2, 8).transpose(0, 2, 1, 3)
+        coef[f] = mul(tops[:, :, None], h[None, None, :FACTOR_ROOTS])
+    words = np.zeros((factors, 2, 32, m * FACTOR_ROOTS // 32), dtype=np.uint64)
+    for c in range(FACTOR_ROOTS):
+        q, sh = divmod(m * c, 32)
+        words[..., q] |= (coef[..., c] << sh).astype(np.uint64) & 0xFFFFFFFF
+        if sh + m > 32:
+            words[..., q + 1] |= (coef[..., c] >> (32 - sh)).astype(np.uint64)
     alog3 = np.zeros(3 * (fs + 1), dtype=np.uint16)
     alog3[:2 * fs] = alog[np.arange(2 * fs) % fs]
     log16 = log.astype(np.uint16)
     log16[0] = 2 * fs
     expo = (va[:, None] * np.arange(FACTOR_ROOTS)[None, :]) % fs
-    return np.concatenate([np.ascontiguousarray(halves).reshape(-1), alog3, log16,
-                           expo.reshape(-1).astype(np.uint16)]).view(np.uint8)
+    tail = np.concatenate([alog3, log16, expo.reshape(-1).astype(np.uint16)])
+    return np.concatenate([words.astype(np.uint32).reshape(-1).view(np.uint8), tail.view(np.uint8)])
 
 
 def gf_tables(rs) -> np.ndarray:
@@ -306,7 +318,7 @@ class RSCudaDecoder:
         self.tables = torch.from_numpy(self._host_tables).to(device)   # [4, 2^m] int32
         make = syndrome_tables if self.m == 8 else wide_syndrome_tables
         # the syndrome kernel's tables: int32 [F, FACTOR_ENTRIES, 4] (syndrome_tables)
-        # or the wide kernel's bytes (wide_syndrome_tables)
+        # or the wide kernel's half tables and tail, as int32 (wide_syndrome_tables)
         self.syndrome_tables = torch.from_numpy(make(
             self._host_tables[0], self._host_tables[1], nr, fcr, prim).view(np.int32)).to(device)
         self._plans = LruCache(capacity=16)   # (n, lost) -> StripePlan, arrays on the card

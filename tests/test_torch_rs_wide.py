@@ -13,13 +13,19 @@ out-of-range inputs, the erasure and external-syndrome decodes,
 `reconstruct`, the C-shaped shim and streaming refuse m > 8 with
 ValueError.  The m = 10 kernels' host data and loops are emulated in
 NumPy here: the syndrome kernel's ten-bit division by the factors of g(x)
-with its tail on log tables, from `wide_syndrome_tables`, against the
-plain syndromes; and the decode kernel's sweep over the shortened word's
+(remainders packed at ten bits a coefficient, T_f[top] as the XOR of two
+half tables' entries, read from one lane's copies as a block lays them
+out) with its tail on log tables, from `wide_syndrome_tables`, against
+the plain syndromes at every F from 1 to 4; the half tables against
+top (h_f - x^16); the lane copies' loads against the shared memory's
+banks; and the decode kernel's sweep over the shortened word's
 locations, chunk by chunk, against the plain Chien over every point.  The
 card holds the kernels to the plain version (chip_smoke.py phase 16).
 
 JAX is imported only by the test that compares with it.
 """
+
+import re
 
 import numpy as np
 import pytest
@@ -33,6 +39,7 @@ from libpoporon_tpu_torch.compat import _CompatConfig, _Handle, poporon_create, 
 from libpoporon_tpu_torch.models.rs_cuda import FACTOR_ROOTS, RSCudaDecoder, gf_tables, \
     wide_syndrome_tables
 from libpoporon_tpu_torch.ops.gf import GF
+from libpoporon_tpu_torch.utils import build
 from libpoporon_tpu_torch.stream import StreamCodec
 from libpoporon_tpu_torch.utils.tensors import symbol_dtype
 
@@ -200,33 +207,70 @@ def test_kernel_gate_admits_m8_and_m10(m, poly, admitted):
 
 # ------------------------------------------- the m = 10 kernels, emulated
 
-def byte_perm(x: int, y: int, s: int) -> int:
-    v = y << 32 | x
-    return sum(((v >> (8 * ((s >> (4 * k)) & 7))) & 0xFF) << (8 * k) for k in range(4))
+M10 = 10
+WORDS = 5                                    # words of a packed remainder or table entry
 
 
-def emulate_wide_syndromes(blob: np.ndarray, nr: int, word: np.ndarray) -> list[int]:
-    """rs_syndrome_wide_kernel's division and tail for one row of symbols,
-    on its tables as the kernel holds them."""
+def kernel_load_words() -> int:
+    """rs_decode.cu's `kWideLoadWords`: the words of a lane's table load."""
+    src = (build.CSRC_DIR / "rs_decode.cu").read_text()
+    found = re.findall(r"^constexpr int kWideLoadWords = (\d+);", src, flags=re.M)
+    assert len(found) == 1, found
+    return int(found[0])
+
+
+def lane_copies(halves: np.ndarray, load_words: int) -> np.ndarray:
+    """The half tables [F, 2, 32, 5] expanded into lane copies as a block of
+    rs_syndrome_wide_kernel expands them in shared memory: word i of the
+    copies, i over [F, 2][loads][32 entries][32 / load_words copies]
+    [load_words], entries padded to whole loads with zeros."""
+    loads = -(-WORDS // load_words)
+    half_words = loads * 1024
+    i = np.arange(halves.shape[0] * 2 * half_words)
+    h, r = i // half_words, i % half_words
+    e = r % 1024 // 32
+    w = r // 1024 * load_words + r % load_words
+    flat = halves.reshape(-1, 32, WORDS)
+    return np.where(w < WORDS, flat[h, e, np.minimum(w, WORDS - 1)], 0).astype(np.uint32)
+
+
+def entry_reads(half: int, entry: int, lane: int, load_words: int) -> list[int]:
+    """The word addresses lane `lane` reads for entry `entry` of half table
+    `half` (2 f for A_f, 2 f + 1 for B_f), load by load."""
+    loads = -(-WORDS // load_words)
+    base = half * loads * 1024 + entry * 32 + lane % (32 // load_words) * load_words
+    return [base + 1024 * l + k for l in range(loads) for k in range(load_words)]
+
+
+def packed_coefficient(words, c: int) -> int:
+    """Coefficient c of a packed remainder or table entry: bits 10 c .. 10 c + 9."""
+    return (sum(int(x) << (32 * q) for q, x in enumerate(words)) >> (M10 * c)) & 1023
+
+
+def emulate_wide_syndromes(blob: np.ndarray, nr: int, word: np.ndarray, lane: int) -> list[int]:
+    """rs_syndrome_wide_kernel's division and tail for one row of symbols, as
+    lane `lane` runs them: remainders packed at ten bits in five words, the
+    lane's copies of the half tables as the block expands them."""
     factors = -(-nr // FACTOR_ROOTS)
-    u16 = blob.view(np.uint16)
-    t_words = blob[: factors * 2 * 1024 * 16].view(np.uint32).reshape(factors, 2, 1024, 4)
-    at = factors * 2 * 1024 * 8
-    alog3, log16 = u16[at: at + 3072], u16[at + 3072: at + 4096]
-    expo = u16[at + 4096: at + 4096 + nr * 16].reshape(nr, 16)
-    R = [[0] * 8 for _ in range(factors)]
+    load_words = kernel_load_words()
+    halves = blob[: factors * 2 * 32 * WORDS * 4].view(np.uint32).reshape(factors, 2, 32, WORDS)
+    s_t = lane_copies(halves, load_words)
+    u16 = blob[halves.nbytes:].view(np.uint16)
+    alog3, log16 = u16[:3072], u16[3072:4096]
+    expo = u16[4096:4096 + nr * 16].reshape(nr, 16)
+    R = [[0] * WORDS for _ in range(factors)]
     for v in word:
         v = int(v) & 1023
         for f in range(factors):
-            top = R[f][7] >> 16
-            for q in range(7, 0, -1):
-                R[f][q] = byte_perm(R[f][q - 1], R[f][q], 0x5432)
-            R[f][0] = byte_perm(v, R[f][0], 0x5410)
-            entry = list(t_words[f, 0, top]) + list(t_words[f, 1, top])
-            R[f] = [r ^ int(e) for r, e in zip(R[f], entry)]
+            top = R[f][4] >> 22                                      # bits 150..159
+            R[f] = [((R[f][q] << M10) | (R[f][q - 1] >> (32 - M10) if q else v)) & 0xFFFFFFFF
+                    for q in range(WORDS)]                           # funnel shifts up ten bits
+            a = s_t[entry_reads(2 * f, top >> 5, lane, load_words)]
+            b = s_t[entry_reads(2 * f + 1, top & 31, lane, load_words)]
+            R[f] = [r ^ int(x) ^ int(y) for r, x, y in zip(R[f], a, b)]
     out = []
     for f in range(factors):
-        lr = [int(log16[(R[f][b >> 1] >> (16 * (b & 1))) & 0xFFFF]) for b in range(16)]
+        lr = [int(log16[packed_coefficient(R[f], b)]) for b in range(16)]
         for j in range(min(16, nr - 16 * f)):
             acc = 0
             for b in range(16):
@@ -236,15 +280,17 @@ def emulate_wide_syndromes(blob: np.ndarray, nr: int, word: np.ndarray) -> list[
 
 
 @pytest.mark.parametrize("cfg,size", [(KP4, 514), (pt.RSConfig(10, 0x409, 3, 7, 64), 300),
-                                      (pt.RSConfig(10, 0x409, 1, 1, 17), 100)],
-                         ids=["kp4", "nr64_prim7", "nr17"])
+                                      (pt.RSConfig(10, 0x409, 1, 1, 17), 100),
+                                      (pt.RSConfig(10, 0x409, 0, 1, 14), 514),
+                                      (pt.RSConfig(10, 0x409, 0, 2, 33), 900)],
+                         ids=["kp4", "nr64_prim7", "nr17", "nr14_kr4", "nr33_prim2"])
 def test_wide_syndrome_division_equals_plain(cfg, size):
     codec = pt.create(cfg, device="cpu")
     rs = codec._rs
     tables = gf_tables(rs)
     blob = wide_syndrome_tables(tables[0], tables[1], rs.num_roots, rs.fcr, rs.prim)
     factors = -(-rs.num_roots // 16)
-    assert blob.nbytes == factors * 2 * 1024 * 16 + 4 * 1024 * 2 + rs.num_roots * 16 * 2
+    assert blob.nbytes == factors * 2 * 32 * WORDS * 4 + 4 * 1024 * 2 + rs.num_roots * 16 * 2
     rng = np.random.default_rng(rs.num_roots)
     info = torch.from_numpy(rng.integers(0, 1024, (6, size))).to(torch.int16)
     word = hurt(torch.cat([info, codec.encode(info).parity], dim=1),
@@ -252,7 +298,52 @@ def test_wide_syndrome_division_equals_plain(cfg, size):
     word[5, 0] |= -32768                          # a bit past m, which the kernel drops
     want = rs.exp2log[rs._syndrome(word[:, :size], word[:, size:]).long()]
     for r in range(word.shape[0]):
-        assert emulate_wide_syndromes(blob, rs.num_roots, word[r].numpy()) == want[r].tolist()
+        lane = (13 * r + 5) % 32
+        assert emulate_wide_syndromes(blob, rs.num_roots, word[r].numpy(), lane) == want[r].tolist()
+
+
+@pytest.mark.parametrize("cfg", [KP4, pt.RSConfig(10, 0x409, 3, 7, 64)], ids=["kp4", "nr64_prim7"])
+def test_wide_half_tables_sum_to_t(cfg):
+    """A_f[top >> 5] ^ B_f[top & 31] = top (h_f - x^16) for every top and
+    factor, h_f built here from the roots with the field's own product."""
+    rs = pt.create(cfg, device="cpu")._rs
+    gf, nr = rs.gf, rs.num_roots
+    tables = gf_tables(rs)
+    blob = wide_syndrome_tables(tables[0], tables[1], nr, rs.fcr, rs.prim)
+    factors = -(-nr // 16)
+    halves = blob[: factors * 2 * 32 * WORDS * 4].view(np.uint32).reshape(factors, 2, 32, WORDS)
+    for f in range(factors):
+        roots = [int(rs.log2exp[((rs.fcr + i) * rs.prim) % rs.fs]) for i in range(16 * f, min(nr, 16 * f + 16))]
+        h = [0] * (16 - len(roots)) + [1]                    # x^(16 - r_f), ascending powers
+        for b in roots:                                      # h *= x + b
+            h = [x ^ gf.mul(b, y) for x, y in zip([0] + h, h + [0])]
+        assert len(h) == 17 and h[16] == 1
+        for top in range(1024):
+            got = [int(x) ^ int(y) for x, y in zip(halves[f, 0, top >> 5], halves[f, 1, top & 31])]
+            assert [packed_coefficient(got, c) for c in range(16)] == [gf.mul(top, c) for c in h[:16]]
+
+
+@pytest.mark.parametrize("load_words", [1, 2])
+def test_wide_lane_copies_free_of_bank_conflicts(load_words):
+    """Whatever the 32 lanes' entries, each of a warp's table loads is served
+    in as few wavefronts as its bytes need: one for 32-bit loads, each lane
+    in its own bank; two for 64-bit loads, a half-warp's 16 lanes over all
+    32 banks.  And each lane's reads give the entry's five words."""
+    rng = np.random.default_rng(load_words)
+    halves = rng.integers(0, 1 << 32, (2, 2, 32, WORDS), dtype=np.uint64).astype(np.uint32)
+    s_t = lane_copies(halves, load_words)
+    for trial in range(64):
+        half = trial % 4
+        entries = rng.integers(0, 32, 32)
+        reads = np.array([entry_reads(half, int(e), lane, load_words)
+                          for lane, e in enumerate(entries)])           # [lane, word]
+        for lane, e in enumerate(entries):
+            assert s_t[reads[lane]][:WORDS].tolist() == halves.reshape(-1, 32, WORDS)[half, e].tolist()
+        for load in range(reads.shape[1] // load_words):
+            first = reads[:, load * load_words]
+            for group in np.split(np.arange(32), 32 // (32 // load_words)):
+                banks = np.concatenate([(first[group] + k) % 32 for k in range(load_words)])
+                assert len(set(banks.tolist())) == len(banks)
 
 
 def sweep_schedule(steps: int) -> list[tuple[int, int]]:
