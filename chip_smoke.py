@@ -97,6 +97,19 @@ syndrome kernel's two lane layouts of its half tables timed in turns,
 the other one from a copy of its source built apart.
 `python3 chip_smoke.py --wide-only` builds the kernels and runs phase 16
 alone.
+
+Phase 17 drives NAND flash's software BCH-8 on 512-byte sectors
+(`BchConfig(13, 0x201b, 8, data_length=4096)`) at B = 131072 sectors
+through the facade: the BCH decode kernel, one launch a decode, against
+the plain version on the card, on the benchmark cell
+`bch4200.rber5e-4.dev`'s mix (stored bits flipped at 5e-4), at exactly t
+and t + 1 errors, t errors in the parity alone, on ragged and offset
+batches and on rows whose locator has a root in the shortened code's pad;
+parity wider than the kernel takes read as its first bytes, other widths
+refused; the gate's other forms (t = 4 and 16, 1 KiB sectors at m = 14, a field of
+ten bits), each also from unaligned bytes; then timed, with ptxas's
+figures.  `python3 chip_smoke.py --bch-only` builds the kernels and runs
+phase 17 alone.
 """
 
 from __future__ import annotations
@@ -184,24 +197,15 @@ def max_abs_err(got, want) -> int:
 PTXAS_KERNELS = ("rs_decode_kernel", "rs_stripe_kernel", "rs_syndrome_wide_kernel")
 
 
-def ptxas_report(lines) -> dict:
-    """Each form of the kernels PTXAS_KERNELS (`rs_decode_kernel<false>`
-    and `<true>` for bytes, `rs_decode_kernel<10,false>` for ten-bit
-    symbols, `rs_syndrome_wide_kernel<2>` for two factors, and so on) -> its
-    registers, stack frame, spill stores and loads and static shared bytes,
-    from the build's `-Xptxas=-v` lines."""
+def ptxas_figures(lines, form_of) -> dict:
+    """Each kernel form that form_of (an entry line -> its name, or None)
+    names -> its registers, stack frame, spill stores and loads and static
+    shared bytes, from the build's `-Xptxas=-v` lines."""
     out, cur = {}, None
     for ln in lines:
-        m = re.search(r"Compiling entry function '\w*?\d(rs_[a-z_]+_kernel)I(?:Li(\d+)E)?"
-                      r"(?:Lb([01])E)?", ln)
         if "Compiling entry function" in ln:
-            cur = None
-            if m and m[1] in PTXAS_KERNELS:
-                if m[3] is None:                    # rs_syndrome_wide_kernel<F>
-                    cur = f"{m[1]}<{m[2]}>"
-                else:                               # a field's form, m = 8 unnamed
-                    field = "" if m[2] in (None, "8") else f"{m[2]},"
-                    cur = f"{m[1]}<{field}{'true' if m[3] == '1' else 'false'}>"
+            cur = form_of(ln)
+            if cur:
                 out[cur] = {}
             continue
         if cur is None:
@@ -215,6 +219,24 @@ def ptxas_report(lines) -> dict:
             smem = re.search(r"(\d+) bytes smem", ln)
             out[cur].update(registers=int(m[1]), static_smem=int(smem[1]) if smem else 0)
     return out
+
+
+def ptxas_report(lines) -> dict:
+    """`ptxas_figures` of each form of the kernels PTXAS_KERNELS
+    (`rs_decode_kernel<false>` and `<true>` for bytes,
+    `rs_decode_kernel<10,false>` for ten-bit symbols,
+    `rs_syndrome_wide_kernel<2>` for two factors, and so on)."""
+    def form_of(ln):
+        m = re.search(r"Compiling entry function '\w*?\d(rs_[a-z_]+_kernel)I(?:Li(\d+)E)?"
+                      r"(?:Lb([01])E)?", ln)
+        if not m or m[1] not in PTXAS_KERNELS:
+            return None
+        if m[3] is None:                    # rs_syndrome_wide_kernel<F>
+            return f"{m[1]}<{m[2]}>"
+        field = "" if m[2] in (None, "8") else f"{m[2]},"      # a field's form, m = 8 unnamed
+        return f"{m[1]}<{field}{'true' if m[3] == '1' else 'false'}>"
+
+    return ptxas_figures(lines, form_of)
 
 
 def corrupt(rng, data, parity, nerr, junk_rows=0, parity_only_rows=0):
@@ -1429,6 +1451,224 @@ def wide_phase(pt, dev, forms, common) -> list[dict]:
              **dec_b, "library_ms": None}]
 
 
+# ------------------------------------------ NAND sector BCH (phase 17)
+
+BCH_NAND = (13, 0x201B, 8, 4096)        # Linux's software BCH-8 on 512-byte sectors
+BCH_PER_BIT = 5e-4                      # fecbench/traffic/rber5e-4.dev.json's raw bit error rate
+BCH_PLAIN_ROWS = 16384                  # rows a block of the plain version
+BCH_PAD_ROWS = 1024                     # rows whose locator has a root in the pad
+BCH_WIDTH_ROWS = 4096                   # rows of the widths the kernel takes or refuses
+# the gate's other forms: t = 4 and 16 on 512-byte sectors, 1 KiB sectors
+# at m = 14 (Linux's step 1024) and a field of ten bits
+BCH_SHAPES = ((13, 0x201B, 4, 4096), (13, 0x201B, 16, 4096), (14, 0x402B, 16, 8192),
+              (10, 0x409, 3, 512))
+BCH_SHAPE_ROWS = 4001                   # ragged against every block of rows
+BCH_FORM = re.compile(r"Compiling entry function '\w*?(bch_decode_kernel)ILi(\d+)ELi(\d+)E")
+
+
+def bch_ptxas(lines) -> dict:
+    """`ptxas_figures` of each `bch_decode_kernel<lanes,words>`."""
+    def form_of(ln):
+        m = BCH_FORM.search(ln)
+        return f"{m[1]}<{m[2]},{m[3]}>" if m else None
+
+    return ptxas_figures(lines, form_of)
+
+
+def bch_errors(g, c, B: int, count, parity_only: bool = False):
+    """Byte errors (data [B, data_bytes], parity [B, parity_bytes]) with
+    count[r] distinct bit errors in row r (an int or a tensor [B]), over
+    the whole word or its parity alone."""
+    import torch
+    span = c.parity_bits if parity_only else c.n
+    count = torch.as_tensor(count, device=g.device).reshape(-1, 1).expand(B, 1)
+    k = int(count.max())
+    bits = torch.zeros(B, c.n, dtype=torch.int32, device=g.device)
+    if k:
+        pos = torch.rand((B, span), generator=g, device=g.device).topk(k, dim=1).indices
+        bits.scatter_(1, pos, (torch.arange(k, device=g.device)[None, :] < count).to(torch.int32))
+    return c.unpack_data(bits[:, c.parity_bits:]), c.unpack_parity(bits[:, : c.parity_bits])
+
+
+def bch_pad_rows(c, data, parity, seed: int):
+    """Rows with the syndromes of 1 + r % t bit errors in row r, some in
+    the pad of the shortened code, each pad bit's x^p mod g(x) flipped in
+    the parity instead: every row must fail."""
+    rng = np.random.default_rng(seed)
+    d, p = data.cpu().numpy().copy(), parity.cpu().numpy().copy()
+    rem, a = [], 1                                  # x^q mod g(x), q = 0 .. fs - 1
+    for _ in range(c.fs):
+        rem.append(a)
+        a <<= 1
+        if a >> c.parity_bits & 1:
+            a ^= c.gen_poly
+    for r in range(d.shape[0]):
+        weight = 1 + r % c.t
+        pad = 1 + (r // c.t) % weight
+        flips = set(int(q) for q in rng.choice(c.n, weight - pad, replace=False))
+        for q in rng.choice(np.arange(c.n, c.fs), pad, replace=False):
+            flips ^= {b for b in range(c.parity_bits) if rem[int(q)] >> b & 1}
+        for q in flips:
+            if q < c.parity_bits:
+                p[r, c.parity_bytes - 1 - q // 8] ^= 1 << (q % 8)
+            else:
+                d[r, c.data_bytes - 1 - (q - c.parity_bits) // 8] ^= 1 << ((q - c.parity_bits) % 8)
+    import torch
+    return torch.as_tensor(d, device=data.device), torch.as_tensor(p, device=data.device)
+
+
+def bch_plain(c, d, p):
+    """The plain version's decode of bytes, in blocks of BCH_PLAIN_ROWS."""
+    import torch
+    parts = [c.decode_bytes_plain(d[i:i + BCH_PLAIN_ROWS], p[i:i + BCH_PLAIN_ROWS])
+             for i in range(0, d.shape[0], BCH_PLAIN_ROWS)]
+    return tuple(torch.cat(x) for x in zip(*parts))
+
+
+def bch_same(codec, d, p, what: str) -> None:
+    """The facade's decode on the card (one kernel launch) equals the plain
+    version, last_num_errors included."""
+    import torch
+    kern = codec._bch.kernel
+    kern.launches = 0
+    got = codec.decode(d, p)
+    check(kern.launches == 1, f"BCH {what}: {kern.launches} kernel launches, not 1")
+    want = bch_plain(codec._bch, d, p)
+    check(torch.equal(got.ok, want[0]) and torch.equal(got.data, want[1])
+          and torch.equal(got.corrected, want[2]) and torch.equal(got.parity, p),
+          f"BCH {what}: kernel != plain version")
+    check(torch.equal(codec.last_num_errors, torch.where(want[0], want[2], -1)),
+          f"BCH {what}: last_num_errors")
+    return got
+
+
+def bch_shapes(pt, dev) -> list[dict]:
+    """The gate's other forms (BCH_SHAPES) on BCH_SHAPE_ROWS rows of 0 to
+    t + 2 errors, in full, from row 1 and with the rows' bytes off their
+    16-byte alignment (the kernel's byte path), each equal to the plain
+    version; rows of at most t errors recovered."""
+    import torch
+    out = []
+    for params in BCH_SHAPES:
+        m, poly, t, k = params
+        codec = pt.create(pt.BchConfig(m, poly, t, data_length=k), device="cuda")
+        c = codec._bch
+        check(c.kernel is not None, f"BCH {params} has no kernel")
+        g = torch.Generator(device=dev).manual_seed(m * 100 + t)
+        info = torch.randint(0, 256, (BCH_SHAPE_ROWS, c.data_bytes), generator=g, device=dev,
+                             dtype=torch.uint8)
+        parity = codec.encode(info).parity
+        count = torch.arange(BCH_SHAPE_ROWS, device=dev) % (t + 3)
+        ed, ep = bch_errors(g, c, BCH_SHAPE_ROWS, count)
+        d, p = info ^ ed, parity ^ ep
+        got = bch_same(codec, d, p, f"{params} all")
+        bch_same(codec, d[1:], p[1:], f"{params} from row 1")
+        odd = torch.empty(BCH_SHAPE_ROWS * c.data_bytes + 1, dtype=torch.uint8, device=dev)
+        du = odd[1:].view(BCH_SHAPE_ROWS, c.data_bytes)
+        du.copy_(d)
+        bch_same(codec, du, p, f"{params} unaligned")
+        within = count <= t
+        check(bool(got.ok[within].all()) and torch.equal(got.data[within], info[within]),
+              f"BCH {params}: rows of at most t errors not recovered")
+        out.append({"config": params, "rows": BCH_SHAPE_ROWS,
+                    "ok_share": float(got.ok.float().mean()), "shape": c.kernel.shape(dev)})
+    return out
+
+
+def bch_nand_phase(pt, dev, ptxas, common) -> dict:
+    """Phase 17: NAND flash's software BCH-8 on 512-byte sectors
+    (BchConfig(13, 0x201b, 8, data_length=4096), BCH(8191, 8087) shortened
+    to 4,200 bits) through the facade on the card, B = BATCH sectors.  The
+    codec holds the BCH decode kernel; each decode is one launch and equals
+    the plain version on the card (run in blocks of rows), last_num_errors
+    included: on the benchmark cell `bch4200.rber5e-4.dev`'s mix (stored
+    bits flipped at 5e-4), at exactly t = 8 (all recovered) and t + 1
+    errors, t errors in the parity alone, at B - 1 rows, from row 1, at 1
+    and 33 rows; on rows whose locator has a root in the pad (all fail);
+    on parity wider than 13 bytes, of which both read the first 13; data
+    of 513 bytes and parity of 12 refused with ValueError and no launch;
+    the gate's other forms (`bch_shapes`); then the kernel, the facade and
+    a block of the plain version timed, with ptxas's figures.  Returns the
+    kernel's entry of the kernels line."""
+    import torch
+    from fecbench.channels.stored_bit_flips import errors as stored_errors
+    from fecbench.metrics.bch_decode_roofline import decode_bytes, decode_ops
+    from libpoporon_tpu_torch.utils.profiling import time_ms
+
+    t0 = time.perf_counter()
+    codec = pt.create(pt.BchConfig(*BCH_NAND[:3], data_length=BCH_NAND[3]), device="cuda")
+    c, kern = codec._bch, codec._bch.kernel
+    build_s = time.perf_counter() - t0
+    check(kern is not None, "the NAND BCH config has no kernel")
+    check(c._M_chien is None and c._G_syn is None, "the kernel path built the plain matrices")
+    check((codec.info_size, codec.parity_size) == (512, 13),
+          f"sizes {codec.info_size}, {codec.parity_size}")
+    g = torch.Generator(device=dev).manual_seed(17)
+    info = torch.randint(0, 256, (BATCH, 512), generator=g, device=dev, dtype=torch.uint8)
+    parity = codec.encode(info).parity
+    err = stored_errors(g, BATCH, 512 + 13, BCH_PER_BIT, dev)
+    cases = {"rber5e-4": (info ^ err[:, :512], parity ^ err[:, 512:])}
+    del err
+    for name, count, par in (("t8", c.t, False), ("t9", c.t + 1, False),
+                             ("t8_parity", c.t, True)):
+        ed, ep = bch_errors(g, c, BATCH, count, par)
+        cases[name] = (info ^ ed, parity ^ ep)
+    out = {}
+    for name, (d, p) in cases.items():
+        got = bch_same(codec, d, p, name)
+        for tag, (dd, pp) in (("ragged", (d[:BATCH - 1], p[:BATCH - 1])),
+                              ("from_row_1", (d[1:], p[1:])),
+                              ("one_row", (d[:1], p[:1])), ("33_rows", (d[:33], p[:33]))):
+            bch_same(codec, dd, pp, f"{name} {tag}")
+        if name in ("t8", "t8_parity"):
+            check(bool(got.ok.all()) and torch.equal(got.data, info)
+                  and bool((got.corrected == c.t).all()), f"BCH {name}: rows not recovered")
+        if name == "t9":
+            check(not bool(got.ok.all()), "BCH t9: every row passed")
+        out[name] = {"ok_share": float(got.ok.float().mean()),
+                     "mean_corrected": float(got.corrected.float().mean()),
+                     "rows_failed": int((~got.ok).sum())}
+    pd, pp = bch_pad_rows(c, info[:BCH_PAD_ROWS], parity[:BCH_PAD_ROWS], 17)
+    got = bch_same(codec, pd, pp, "pad root")
+    check(not bool(got.ok.any()), "BCH pad root: a row passed")
+    d, p = (x[:BCH_WIDTH_ROWS] for x in cases["rber5e-4"])
+    bch_same(codec, d, torch.cat([p, p[:, :2]], dim=1), "parity of 15 bytes")
+    kern.launches = 0
+    for what, (dd, pp) in (("data of 513 bytes", (torch.cat([d, d[:, :1]], dim=1), p)),
+                           ("parity of 12 bytes", (d, p[:, :12]))):
+        try:
+            codec.decode(dd, pp)
+            refused = False
+        except ValueError:
+            refused = True
+        check(refused and kern.launches == 0, f"BCH {what}: decoded, not refused")
+    log({"phase": "bch_nand", "config": repr(codec.config), "codec_build_s": build_s,
+         "cases": out, "pad_root_rows": BCH_PAD_ROWS, "kernel_vs_plain": "equal",
+         "launches_per_decode": 1, **common})
+    log({"phase": "bch_shapes", "cases": bch_shapes(pt, dev), "kernel_vs_plain": "equal"})
+
+    # timing on the cell's mix
+    d, p = cases["rber5e-4"]
+    t_kern = [time_ms(kern.decode, d, p), time_ms(kern.decode, d, p)]
+    t_fac = time_ms(codec.decode, d, p)
+    dp, pq = d[:BCH_PLAIN_ROWS], p[:BCH_PLAIN_ROWS]
+    t_plain = time_ms(c.decode_bytes_plain, dp, pq, warmup=1, iters=3)
+    corrected = bch_plain(c, d, p)[2].cpu()
+    ms = sum(t_kern) / 2
+    b = bound(decode_bytes(BATCH, 512, 13), decode_ops(c.n, c.parity_bits, c.t, corrected))
+    forms = bch_ptxas(ptxas)
+    log({"bench": "bch_nand_decode", "kernel_ms": ms, "kernel_runs_ms": t_kern, **b,
+         "share_of_bound": b["bound_ms"] / ms, "facade_ms": t_fac,
+         "payload_MB_per_s": BATCH * 512 / t_fac / 1e3,
+         "plain_ms_per_16384_rows": t_plain, "shape": kern.shape(dev), "ptxas": forms,
+         **common})
+    del cases, d, p
+    return {"name": "bch_nand_decode", "route": "cuda",
+            "source": "libpoporon_tpu_torch/csrc/bch_decode.cu", "replaces": None,
+            "ms": ms, "plain_ms": t_plain * BATCH / BCH_PLAIN_ROWS,
+            "plain_ms_is": "a block of 16384 rows, scaled", **b, "library_ms": None}
+
+
 # ------------------------------------------------------- parallel/ (phase 13)
 
 PAR_ODD = BATCH - 1     # the two-entry mesh's batch: one pad row, then split
@@ -1849,6 +2089,13 @@ def main(argv=None) -> int:
         print(json.dumps({"kernels": entries}), flush=True)
         print(json.dumps({"ok": True}), flush=True)
         return 0
+    if "--bch-only" in argv:
+        # phase 17 alone
+        entry = bch_nand_phase(pt, torch.device("cuda"), ptxas,
+                               {"batch": BATCH, "card": card, "warmup": WARMUP, "iters": ITERS})
+        print(json.dumps({"kernels": [entry]}), flush=True)
+        print(json.dumps({"ok": True}), flush=True)
+        return 0
     if "--stripe-only" in argv:
         # phase 15 alone
         entry = stripe_phase(pt, torch.device("cuda"), np.random.default_rng(15),
@@ -2163,10 +2410,13 @@ def main(argv=None) -> int:
     # ---- phase 16: ten-bit symbols (RS(544,514) over GF(2^10))
     wide_entries = wide_phase(pt, dev, forms, common)
 
+    # ---- phase 17: NAND sector BCH (the BCH decode kernel)
+    bch_entry = bch_nand_phase(pt, dev, ptxas, common)
+
     syn_entry.update(launches=syn_launches, max_abs_err=syn_err)
     log({"phase": "total", "seconds": time.perf_counter() - t_start, "card": card})
     print(json.dumps({"kernels": [rs_entry, syn_entry, ldpc_entry, stripe_entry,
-                                  *wide_entries, *probe_entries]}), flush=True)
+                                  *wide_entries, bch_entry, *probe_entries]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -14,8 +14,12 @@ names.  It imports torch and never jax.  So far it carries:
 - LDPC: the seeded parity-check structure and interleavers, encode, and
   min-sum BP decode, hard and soft, whose BP runs through a hand-written
   CUDA kernel (csrc/ldpc_bp.cu) on the card;
-- BCH: binary BCH for m in [3, 16] (models/bch.py), bit, word and byte
-  APIs, in plain PyTorch ops (the JAX package has no BCH kernel);
+- BCH: binary BCH for m in [3, 16] (models/bch.py), full length or
+  shortened (`BchConfig.data_length`), bit, word and byte APIs, in plain
+  PyTorch ops; on the card a shortened code of whole data bytes (NAND
+  flash's BCH-8 on 512-byte sectors among them) decodes its stored bytes
+  through a hand-written CUDA kernel (csrc/bch_decode.cu; the JAX package
+  has no BCH kernel);
 - the C-shaped shim (compat.py: the `poporon_*` functions over NumPy
   buffers) and byte-stream framing (stream.py: `StreamCodec`);
 - measurement: the DMA probes as CUDA bulk-copy kernels

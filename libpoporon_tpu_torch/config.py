@@ -9,13 +9,18 @@ dataclasses and presets, with the reference's defaults:
   both interleavers on (poporon.c:286-289)
 - LDPC burst-resistant: column_weight=7 (poporon.c:291-294)
 - BCH default:  (4, 0x13, t=3) -> BCH(15,5) (poporon.c:296-299)
+- BCH shortened: `data_length` data bits a codeword in place of the full
+  2^m - 1 - deg g(x), e.g. Linux's NAND software BCH-8 on 512-byte
+  sectors, `BchConfig(13, 0x201b, 8, data_length=4096)`: 4,096 data bits
+  and 104 parity bits, BCH(8191, 8087) shortened to 4,200 bits
 
 No config selects a kernel: the JAX package's `use_pallas` (a TPU
-knob) has no counterpart.  An RS or LDPC codec on a card runs its
+knob) has no counterpart.  An RS, LDPC or BCH codec on a card runs its
 hand-written CUDA kernels for every config inside their gate
 (models/rs_cuda.py `RSCudaDecoder.supports`, models/ldpc_cuda.py
-`BPCudaKernel.supports`), and the plain PyTorch version otherwise; a
-codec on the CPU always runs the plain version.  BCH has no kernel.
+`BPCudaKernel.supports`, models/bch_cuda.py `BCHCudaDecoder.supports`:
+shortened BCH codes of whole data bytes), and the plain PyTorch version
+otherwise; a codec on the CPU always runs the plain version.
 """
 
 from __future__ import annotations
@@ -113,6 +118,10 @@ class BchConfig:
     symbol_size: int = 4
     generator_polynomial: int = 0x13
     correction_capability: int = 3
+    # Data bits a codeword: 0 is the full length, 2^m - 1 - deg g(x); a
+    # smaller count shortens the code (the high data bits it drops are
+    # zero and never stored).
+    data_length: int = 0
 
     fec_type = FecType.BCH
 

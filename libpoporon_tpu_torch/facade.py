@@ -26,8 +26,11 @@ the config interleaves, and LDPC `decode` reports the iterations used in
 the caller's data unchanged beside the parity; BCH `decode` writes the
 corrected data_bytes over the row as the JAX package does, so a row
 longer than data_bytes gets them broadcast when data_bytes is 1 and
-raises ValueError otherwise (ROADMAP.md Queue 3, F7), and keeps the
-per-row error counts, -1 on a failed row, in `last_num_errors`.
+raises ValueError otherwise (ROADMAP.md Queue 3, F7), and gives the
+per-row error counts, -1 on a failed row, in `last_num_errors`.  A
+shortened BCH code of whole data bytes on the card (NAND's BCH-8 on
+512-byte sectors, `BchConfig(13, 0x201b, 8, data_length=4096)`) decodes
+rows of exactly data_bytes and parity_bytes in one kernel launch.
 """
 
 from __future__ import annotations
@@ -242,17 +245,19 @@ class Codec:
         c = self._bch
         if data.shape[-1] < c.data_bytes:
             raise ValueError("BCH decode: data too short (decode.c:555)")
-        received = torch.cat([c.pack_parity(parity), c.pack_data(data)], dim=1)
-        ok, cw, nerr = c.decode_bits(received)
-        out_bytes = c.unpack_data(cw[:, c.parity_bits:])
-        # F7: the corrected data_bytes broadcast over the row, as in JAX
-        if out_bytes.shape[-1] not in (1, data.shape[-1]):
-            raise ValueError(f"Incompatible shapes for broadcasting: {tuple(out_bytes.shape)} "
-                             f"and {tuple(data.shape)}")
-        data_out = torch.where(ok[:, None], out_bytes, data)
-        corrected = torch.where(ok, nerr.clamp(min=0), 0)
-        self.last_num_errors = torch.where(ok, nerr, -1)
+        ok, data_out, corrected = c.decode_bytes(data, parity)
+        self._bch_last = (ok, corrected)
         return DecodeResult(ok, data_out, parity, corrected)
+
+    @property
+    def last_num_errors(self) -> torch.Tensor:
+        """The last BCH decode's per-row error counts, -1 on a failed row,
+        computed when read (AttributeError before any BCH decode)."""
+        last = getattr(self, "_bch_last", None)
+        if last is None:
+            raise AttributeError("no BCH decode has run: last_num_errors is unset")
+        ok, corrected = last
+        return torch.where(ok, corrected, -1)
 
 
 def create(config, device: str | torch.device = "cuda") -> Codec:

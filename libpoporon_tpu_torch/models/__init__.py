@@ -1,7 +1,8 @@
 from .bch import BCHCodec
+from .bch_cuda import BCHCudaDecoder
 from .ldpc import LDPCCodec
 from .ldpc_cuda import BPCudaKernel
 from .rs import RSCodec
 from .rs_cuda import RSCudaDecoder
 
-__all__ = ["BCHCodec", "BPCudaKernel", "LDPCCodec", "RSCodec", "RSCudaDecoder"]
+__all__ = ["BCHCodec", "BCHCudaDecoder", "BPCudaKernel", "LDPCCodec", "RSCodec", "RSCudaDecoder"]

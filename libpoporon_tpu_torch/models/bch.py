@@ -2,13 +2,13 @@
 
 Counterpart of libpoporon_tpu/models/bch.py, and bit-identical to it on
 every input: ok flags, codeword bits and words, error counts and bytes.
-The JAX package runs BCH through XLA with no Pallas kernel, so this is
-plain PyTorch ops on whatever device the codec lives on.
+The JAX package runs BCH through XLA with no Pallas kernel, so the plain
+version here is plain PyTorch ops on whatever device the codec lives on.
 
 * The host builders (minimal polynomials, the generator as the LCM over
-  the conjugacy classes of alpha^1..alpha^2t, the scalar long-division
-  encoder and the matrices `R_enc`, `G_syn`, `M_chien`, `inv_tbl`) are
-  value-identical copies; `host_arrays` returns them by the JAX codec's
+  the conjugacy classes of alpha^1..alpha^2t, the encoder's remainders
+  and the matrices `R_enc`, `G_syn`, `M_chien`, `inv_tbl`) give the JAX
+  codec's values; `host_arrays` returns them by the JAX codec's
   attribute names, and `BCHCodec.from_arrays` builds a codec from a JAX
   codec's arrays.
 * Encode, syndromes and the Chien search are mod-2 matmuls against those
@@ -19,10 +19,29 @@ plain PyTorch ops on whatever device the codec lives on.
   element of a field with a primitive polynomial (`_field` rejects any
   other), and its per-row shift of the b polynomial is one gather.
 
+A config's `data_length` shortens the code: the word is then
+parity_bits + data_length bits, its missing high data bits zero, and
+Chien searches the word's own positions only, so a locator root in the
+pad finds fewer roots than the locator's degree and the row fails (as
+Linux's lib/bch.c returns -EBADMSG for an error beyond the data).
+`data_length` 0 is the full length, 2^m - 1 - deg g, as in the JAX
+package.
+
 Codewords are LSB-first bit tensors [B, n] (bit j is the coefficient of
 x^j; bits[:parity_bits] are the parity, bits[parity_bits:] the data),
 defined for every m in [3, 16]; the int32 word API is an adapter for
 n <= 31, and the byte layer packs big-endian bytes as the C facade does.
+
+The decode of bytes (`decode_bytes`, the facade's) is chosen once, when
+the codec is built: a codec on a card whose config the CUDA kernel
+supports (models/bch_cuda.py `BCHCudaDecoder.supports`: shortened codes
+of whole data bytes) holds its launcher (`kernel`) and decodes the
+stored bytes in one launch, with no bit tensor; every other codec, and
+every codec on the CPU, has `kernel` None and packs the bytes into bits
+for the plain version.  A codec with the kernel never falls back to the
+plain version: rows of another width than the kernel takes raise
+ValueError.  `G_syn` and `M_chien`, which only the plain
+version reads, are built when it first runs.
 """
 
 from __future__ import annotations
@@ -35,7 +54,9 @@ from ..ops.gf import GF, GFError
 from ..ops.gf2 import gf2_matmul
 from ..ops.gfint import gf_mul
 from ..utils.cache import LruCache
+from ..utils.profiling import span
 from ..utils.tensors import as_tensor
+from .bch_cuda import BCHCudaDecoder, bch_tables
 from .rs import _bits_to_symbols, _symbols_to_bits, _xor_reduce
 
 _BCH_MAX_POLY = 64
@@ -60,6 +81,9 @@ def _field(cfg: BchConfig) -> GF:
         raise GFError("BCH symbol_size must be in [3, 16] (bch.c:293)")
     if not (1 <= cfg.correction_capability <= _BCH_MAX_T):
         raise GFError("BCH t must be in [1, 16] (bch.c:297)")
+    if cfg.data_length < 0:
+        raise GFError(f"BCH data_length must be 0 (full length) or positive, "
+                      f"got {cfg.data_length}")
     gf = GF(cfg.symbol_size, cfg.generator_polynomial)
     if not gf.primitive:
         raise GFError(f"generator polynomial {cfg.generator_polynomial:#x} is not "
@@ -122,31 +146,46 @@ def _generator(gf: GF, t: int) -> int:
     return gen
 
 
-def _encode_word(gen: int, n: int, data: int) -> int:
-    """Scalar long-division encoder (bch.c:352-380 semantics)."""
+def _data_length(cfg: BchConfig, fs: int, gen: int) -> int:
+    """The config's data bits a codeword: its `data_length`, or the full
+    fs - deg g where that is 0; GFError past the full length."""
+    full = fs - (gen.bit_length() - 1)
+    if cfg.data_length > full:
+        raise GFError(f"BCH data_length {cfg.data_length} exceeds the full length {full}")
+    return int(cfg.data_length) or full
+
+
+def _remainders(gen: int, count: int) -> np.ndarray:
+    """uint8 [count, deg]: row i the LSB-first bits of x^(deg + i) mod
+    gen, the parity of the data word whose only set bit is bit i (the
+    systematic encoder's remainder, bch.c:352-380).  Each row is the
+    last one times x, reduced once: a shift and at most one XOR."""
     deg = gen.bit_length() - 1
-    shifted = data << deg
-    rem = shifted
-    for i in range(n - 1, deg - 1, -1):
-        if rem & (1 << i):
-            rem ^= gen << (i - deg)
-    return shifted ^ rem
+    nbytes = (deg + 7) // 8
+    out = bytearray()
+    r = gen ^ (1 << deg)                      # x^deg mod gen
+    for _ in range(count):
+        out += r.to_bytes(nbytes, "little")
+        r <<= 1
+        if r >> deg & 1:
+            r ^= gen
+    bits = np.unpackbits(np.frombuffer(bytes(out), dtype=np.uint8).reshape(count, nbytes),
+                         axis=1, bitorder="little")
+    return np.ascontiguousarray(bits[:, :deg])
 
 
-def _build_matrices(gf: GF, t: int, gen: int) -> dict[str, np.ndarray]:
-    m, fs = gf.symbol_size, gf.field_size
-    n = fs
-    parity_bits = gen.bit_length() - 1
-    data_length = n - parity_bits
-    # Remainder matrix: the parity bits (LSB-first) of each data-bit basis
-    # vector's codeword.
-    R = np.zeros((data_length, parity_bits), dtype=np.uint8)
-    pmask = (1 << parity_bits) - 1
-    for i in range(data_length):
-        p = _encode_word(gen, n, 1 << i) & pmask
-        for b in range(parity_bits):
-            R[i, b] = (p >> b) & 1
+def _encoder_arrays(gf: GF, gen: int, data_length: int) -> dict[str, np.ndarray]:
+    """R_enc [data_length, deg] and inv_tbl [fs + 1] (inv[0] = 0)."""
+    fs = gf.field_size
+    inv = np.zeros(fs + 1, dtype=np.int64)
+    log = gf.exp2log[1:].astype(np.int64)
+    inv[1:] = gf.log2exp[(fs - log) % fs]
+    return dict(R_enc=_remainders(gen, data_length), inv_tbl=inv)
 
+
+def _decoder_matrices(gf: GF, t: int, n: int) -> dict[str, np.ndarray]:
+    """G_syn [n, 2t m] and M_chien [64 m, n m] for words of n bits."""
+    fs = gf.field_size
     # Syndromes: S_i ^= alpha^{((i+1) j) % fs} for each set bit j
     j = np.arange(n, dtype=np.int32)[:, None]
     i = np.arange(2 * t, dtype=np.int32)[None, :]
@@ -158,29 +197,45 @@ def _build_matrices(gf: GF, t: int, gen: int) -> dict[str, np.ndarray]:
     ii = np.arange(n, dtype=np.int32)[None, :]
     logx = (fs - ii) % fs
     m_chien = gf.linear_matrix(gf.log2exp[(c * logx) % fs % fs])          # [64 m, n m]
-
-    inv = np.zeros(fs + 1, dtype=np.int64)
-    for x in range(1, fs + 1):
-        inv[x] = gf.log2exp[(fs - int(gf.exp2log[x])) % fs]
-    return dict(R_enc=R, G_syn=g_syn, M_chien=m_chien, inv_tbl=inv)
+    return dict(G_syn=g_syn, M_chien=m_chien)
 
 
 _ARRAY_CACHE = LruCache(capacity=16)
 
 
-def host_arrays(cfg: BchConfig) -> dict[str, np.ndarray]:
-    """Every host-built array of the codec for `cfg`, keyed by
-    ARRAY_NAMES.  Cached; treat the arrays as read-only."""
-    key = (cfg.symbol_size, cfg.generator_polynomial, cfg.correction_capability)
+def _key(cfg: BchConfig) -> tuple:
+    return (cfg.symbol_size, cfg.generator_polynomial, cfg.correction_capability,
+            cfg.data_length)
 
+
+def _encoder_host_arrays(cfg: BchConfig) -> dict[str, np.ndarray]:
+    """R_enc, inv_tbl, log2exp and exp2log of `cfg`.  Cached."""
     def build():
         gf = _field(cfg)
-        t = int(cfg.correction_capability)
-        arrays = _build_matrices(gf, t, _generator(gf, t))
+        gen = _generator(gf, int(cfg.correction_capability))
+        arrays = _encoder_arrays(gf, gen, _data_length(cfg, gf.field_size, gen))
         arrays.update(log2exp=gf.log2exp, exp2log=gf.exp2log)
         return arrays
 
-    return _ARRAY_CACHE.get_or_build(key, build)
+    return _ARRAY_CACHE.get_or_build(("encoder", *_key(cfg)), build)
+
+
+def _decoder_host_arrays(cfg: BchConfig) -> dict[str, np.ndarray]:
+    """G_syn and M_chien of `cfg`, for the plain decode.  Cached."""
+    def build():
+        gf = _field(cfg)
+        t = int(cfg.correction_capability)
+        gen = _generator(gf, t)
+        n = gen.bit_length() - 1 + _data_length(cfg, gf.field_size, gen)
+        return _decoder_matrices(gf, t, n)
+
+    return _ARRAY_CACHE.get_or_build(("decoder", *_key(cfg)), build)
+
+
+def host_arrays(cfg: BchConfig) -> dict[str, np.ndarray]:
+    """Every host-built array of the codec for `cfg`, keyed by
+    ARRAY_NAMES.  Cached; treat the arrays as read-only."""
+    return {**_encoder_host_arrays(cfg), **_decoder_host_arrays(cfg)}
 
 
 class BCHCodec:
@@ -193,32 +248,38 @@ class BCHCodec:
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but torch sees no CUDA device")
         gf = _field(cfg)
+        self.cfg = cfg
         self.device = device
         self.gf = gf
         self.m = gf.symbol_size
         self.fs = gf.field_size
         self.t = int(cfg.correction_capability)
-        self.n = (1 << self.m) - 1  # codeword_length
         self.gen_poly = _generator(gf, self.t)
         self.gen_poly_deg = self.gen_poly.bit_length() - 1
         self.parity_bits = self.gen_poly_deg
-        self.data_length = self.n - self.parity_bits
+        self.data_length = _data_length(cfg, self.fs, self.gen_poly)
+        self.n = self.parity_bits + self.data_length   # codeword_length
 
+        self._arrays = arrays
         if arrays is None:
-            arrays = host_arrays(cfg)
-
-        def f32(name):
-            return torch.tensor(np.asarray(arrays[name], dtype=np.float32), device=device)
+            arrays = _encoder_host_arrays(cfg)
 
         def i32(name):
             return torch.tensor(np.asarray(arrays[name], dtype=np.int32), device=device)
 
-        self.R_enc = f32("R_enc")        # [data_length, parity_bits]
-        self.G_syn = f32("G_syn")        # [n, 2t m]
-        self.M_chien = f32("M_chien")    # [64 m, n m]
+        self.R_enc = torch.tensor(np.asarray(arrays["R_enc"], dtype=np.float32),
+                                  device=device)   # [data_length, parity_bits]
         self.inv_tbl = i32("inv_tbl")    # [fs+1], inv[0] = 0
         self.log2exp = i32("log2exp")    # [fs+1], log2exp[fs] = 0
         self.exp2log = i32("exp2log")    # [fs+1], exp2log[0] = fs
+        self._G_syn = self._M_chien = None
+
+        # The kernel's launcher: on a card, for configs the kernel supports.
+        self.kernel = None
+        if device.type == "cuda" and BCHCudaDecoder.supports(self):
+            self.kernel = BCHCudaDecoder(
+                bch_tables(arrays["log2exp"], arrays["exp2log"], self.gen_poly, self.t),
+                self.m, self.t, self.parity_bits, self.data_bytes, device)
 
     @classmethod
     def from_arrays(cls, cfg: BchConfig, arrays: dict[str, np.ndarray],
@@ -226,6 +287,24 @@ class BCHCodec:
         """A codec built from given arrays (ARRAY_NAMES), e.g. a JAX
         codec's, taken with np.asarray."""
         return cls(cfg, device, arrays)
+
+    def _decoder_matrix(self, name: str) -> torch.Tensor:
+        arrays = self._arrays if self._arrays is not None else _decoder_host_arrays(self.cfg)
+        return torch.tensor(np.asarray(arrays[name], dtype=np.float32), device=self.device)
+
+    @property
+    def G_syn(self) -> torch.Tensor:
+        """[n, 2t m]: the syndromes' bit matrix, built at first use."""
+        if self._G_syn is None:
+            self._G_syn = self._decoder_matrix("G_syn")
+        return self._G_syn
+
+    @property
+    def M_chien(self) -> torch.Tensor:
+        """[64 m, n m]: the Chien search's bit matrix, built at first use."""
+        if self._M_chien is None:
+            self._M_chien = self._decoder_matrix("M_chien")
+        return self._M_chien
 
     # --------------------------------------------------- bit-tensor codec
 
@@ -347,6 +426,37 @@ class BCHCodec:
         ok, out, ne = self.decode_bits(self._word_bits(received & ((1 << self.n) - 1)))
         cw = self._bits_word(out)
         return (ok[0], cw[0], ne[0]) if squeeze else (ok, cw, ne)
+
+    def decode_bytes(self, data: torch.Tensor, parity: torch.Tensor):
+        """The facade's decode of stored bytes: data uint8 [B, >= data_bytes]
+        and parity uint8 [B, parity bytes] on the codec's device -> (ok [B]
+        bool, data uint8 [B, data bytes], corrected [B] int32): each ok row's
+        data corrected and every other row's as given, the count 0 on clean
+        and failed rows.  A codec that holds the kernel takes rows of
+        exactly data_bytes and at least parity_bytes, of which it reads the
+        first parity_bytes as the plain version does, and raises ValueError
+        on any other width.  Every other codec runs the plain version on
+        packed bits, whose corrected data_bytes are broadcast over a longer
+        row where data_bytes is 1 and raise ValueError otherwise
+        (ROADMAP.md Queue 3, F7)."""
+        with span("poporon.codec.decode"):
+            if self.kernel is None:
+                return self.decode_bytes_plain(data, parity)
+            if data.shape[-1] != self.data_bytes or parity.shape[-1] < self.parity_bytes:
+                raise ValueError(f"BCH decode on the kernel takes rows of {self.data_bytes} "
+                                 f"data and {self.parity_bytes} parity bytes, got "
+                                 f"{data.shape[-1]} and {parity.shape[-1]}")
+            return self.kernel.decode(data, parity[..., : self.parity_bytes])
+
+    def decode_bytes_plain(self, data: torch.Tensor, parity: torch.Tensor):
+        """`decode_bytes` by the plain version, on packed bits."""
+        received = torch.cat([self.pack_parity(parity), self.pack_data(data)], dim=1)
+        ok, cw, nerr = self.decode_bits(received)
+        out_bytes = self.unpack_data(cw[:, self.parity_bits:])
+        if out_bytes.shape[-1] not in (1, data.shape[-1]):
+            raise ValueError(f"Incompatible shapes for broadcasting: "
+                             f"{tuple(out_bytes.shape)} and {tuple(data.shape)}")
+        return ok, torch.where(ok[:, None], out_bytes, data), torch.where(ok, nerr, 0)
 
     def extract_data(self, codeword) -> torch.Tensor:
         """bch.c:437-444 (n <= 31 word form)."""

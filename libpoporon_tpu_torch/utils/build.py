@@ -11,7 +11,7 @@ is no fallback.
 Every launch of the library goes through `launch`, every occupancy query
 through `occupancy`: they enter the card, pass it and its current stream
 (`stream`), and raise on an error the entry returns.  The kernel
-launchers (models/rs_cuda.py, models/ldpc_cuda.py,
+launchers (models/rs_cuda.py, models/ldpc_cuda.py, models/bch_cuda.py,
 benchmarks/probe_dma.py) take CUDA tensors only.  A codec on the card
 whose config is inside its kernel's gate builds a launcher; every other
 codec, and every codec on the CPU, runs its plain PyTorch version.
@@ -69,6 +69,13 @@ SIGNATURES = {
     # mode, V, P, E, runs, dv, has_src, shared_graph, groups, threads,
     # device (returns blocks per SM, or a negative cudaError_t)
     "pp_ldpc_bp_blocks_per_sm": [_I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I],
+    # data, parity, tables, data_out, ok_out, corrected_out, batch, data
+    # bytes, parity bytes, parity bits, t, m, vec, threads, grid, smem,
+    # device, stream
+    "pp_bch_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # m, t, parity bits, threads, device, smem out (returns blocks per SM,
+    # 0 past the device's shared memory, or a negative cudaError_t)
+    "pp_bch_decode_shape": [_I, _I, _I, _I, _I, _P],
     # mode, idx, src, out, checksum, landed, nsrc, rows, sub, repeat, depth,
     # device, stream
     "pp_probe_dma": [_I, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _I, _P],
